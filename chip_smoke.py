@@ -1,16 +1,23 @@
-"""GPU smoke run of the PyTorch port's main path (KWS: 1-s wavs -> fused
-MFCC kernel -> population trainer -> NSGA-II front), on one CUDA card.
+"""GPU smoke run of the PyTorch port's two paths on one CUDA card:
+
+* KWS: 1-s wavs -> fused MFCC kernel -> population trainer -> NSGA-II front;
+* BirdCLEF: 5-s wav files -> extraction CLI (fused log-mel kernel) -> 501x40
+  npy split -> template-B population trainer -> GP-surrogate SA-NSGA-II
+  (``sa_nsga_penalty``) front.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build   — compile every CUDA kernel of the path from csrc/ (nvcc, sm_90a);
+1. build   — compile every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
+             per kernel, all started together;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the main path's shapes (mfcc_fused: 4096 1-s clips, hop 360,
-             40 mels, 13 MFCC; atol 3e-2, rtol 1e-3, the JAX package's
-             Pallas-vs-XLA tolerance), with kernel, plain and bound times;
-3. extract — ~2000 class-dependent synthetic wavs through
+             its path's shapes (atol 3e-2, rtol 1e-3, the JAX package's
+             Pallas-vs-XLA tolerance), with kernel, plain and bound times:
+             mfcc_fused at 4096 1-s clips, hop 360, 40 mels, 13 MFCC;
+             log_mel_fused at 512 5-s clips, hop 160, 40 mels, in dB with
+             top_db 80 and in natural-log mode;
+3. extract — ~2000 class-dependent synthetic 1-s wavs through
              ``extract_features(kind="mfcc")`` into a stratified 70/15/15
              npy split;
 4. train   — ``PopulationEvaluator.evaluate`` in bf16 on 8 fixed genomes,
@@ -18,12 +25,21 @@ Phases (any failure exits non-zero; nothing is caught):
              repeat bit for bit;
 5. search  — the CLI, ``--preset nsga_penalty --source npy --device cuda``;
              its per-generation and final CSVs must carry the reference
-             schema.
+             schema, and its front must not be empty;
+6. bird-extract — 11 classes x 120 synthetic 5-s bird calls written as
+             16-bit wavs, then ``cli/extract_features.py --kind log_mel
+             --duration 5 --layout npy --device cuda``; (n, 501, 40) rows,
+             the first against the float64 oracle;
+7. bird-train — template B at 501x40 in bf16, the widest and the narrowest
+             genome, twice: bit-for-bit repeatable fitness; peak memory;
+8. bird-search — the CLI, ``--preset sa_nsga_penalty --source npy --device
+             cuda``: GP fits on the card; the reference's surrogate
+             artifacts, with a front of at least one feasible genome.
 
-Launch counts are zeroed just before phase 3 and read after phase 5: each
-kernel of the path must have launched there. The last lines are one JSON
-object per kernel record set, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before each path (phase 3, phase 6) and read
+just after it (phase 5, phase 8): each kernel of a path must have launched
+there. The last lines are one JSON object with the kernel records, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -32,9 +48,11 @@ import argparse
 import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "smoke")
@@ -43,6 +61,16 @@ KWS_N_SAMPLES = 16000
 KWS_HOP = 360
 CLASSES = 10
 N_WAVS = 2000
+BIRD_N_SAMPLES = 80000  # 5-s clips at 16 kHz -> 501 frames at hop 160
+BIRD_CLASSES = 11
+BIRD_PER_CLASS = 120
+BIRD_MIN_ACC = 0.5  # bird-train, 4 epochs; chance is 1/11
+BIRD_SEARCH_EPOCHS = 15  # enough for a genome of the search to pass the
+# preset's constraints (accuracy >= 0.75, FPR <= 0.09), so that its front
+# is not empty
+BIRD_CHECK_CLIPS = 512
+TOL = dict(atol=3e-2, rtol=1e-3)  # the JAX package's Pallas-vs-XLA tolerance
+KERNELS = ("mfcc_fused", "log_mel_fused")
 # (name, bytes/s, f32 FLOP/s outside the tensor cores): published dense peaks
 PEAKS = {
     "H100 PCIe": (2.0e12, 51e12),
@@ -110,90 +138,150 @@ def synth_kws(rng, n: int):
     return wavs, labels.astype(np.int32)
 
 
-def stratified_split(rng, labels, fracs=(0.70, 0.15, 0.15)):
-    import numpy as np
-
-    parts = [[], [], []]
-    for k in np.unique(labels):
-        idx = rng.permutation(np.nonzero(labels == k)[0])
-        a = int(round(fracs[0] * len(idx)))
-        b = a + int(round(fracs[1] * len(idx)))
-        for p, sl in zip(parts, (idx[:a], idx[a:b], idx[b:])):
-            p.extend(sl.tolist())
-    return [np.asarray(sorted(p)) for p in parts]
-
-
-def phase_build() -> dict:
+def phase_build() -> None:
     from cmoop_audio_processing_torch.frontend.cuda_kernels import build_library
 
     t0 = time.perf_counter()
-    path = build_library("mfcc_fused", verbose=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = list(pool.map(lambda k: build_library(k, verbose=True), KERNELS))
     secs = time.perf_counter() - t0
-    log(f"[build] mfcc_fused -> {os.path.relpath(path, ROOT)} in {secs:.1f} s")
-    return {"mfcc_fused": secs}
+    for name, path in zip(KERNELS, paths):
+        log(f"[build] {name} -> {os.path.relpath(path, ROOT)}")
+    log(f"[build] {len(KERNELS)} kernels in {secs:.1f} s")
+
+
+def check_close(name: str, got, want) -> float:
+    """Max |got - want|; raises unless every element is within TOL."""
+    import torch
+
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert bool(torch.isfinite(got).all()), f"{name}: non-finite output"
+    err = (got - want).abs()
+    tol = TOL["atol"] + TOL["rtol"] * want.abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(
+            f"{name} disagrees with its plain version: max |err| "
+            f"{float(err.max())} ({int((err > tol).sum())} elements out of "
+            "tolerance)"
+        )
+    return float(err.max())
+
+
+def frontend_work(cfg, batch: int, n_samples: int, n_out: int,
+                  epilogue_flops: int):
+    """(FLOPs, bytes) the frontend function needs for one call, whatever a
+    kernel spends: per frame a real FFT of n_fft points (2.5 n log2 n, the
+    usual count for a real transform), the window, the power (3 per bin),
+    the mel product over the filter bank's nonzero weights, the log and
+    ``epilogue_flops``; the waveform read once and the (frames, n_out)
+    output written once. The kernels' dense-GEMM DFT (2*n_fft*2*n_bins per
+    frame) is ~38x the FFT's count and is not what the function needs."""
+    import math
+
+    import numpy as np
+
+    from cmoop_audio_processing_torch.frontend.features import mel_matrix
+
+    n = cfg.n_fft
+    per_frame = (2.5 * n * math.log2(n) + n + 3 * cfg.n_bins
+                 + 2 * int(np.count_nonzero(mel_matrix(cfg))) + cfg.n_mels
+                 + epilogue_flops)
+    frames = batch * cfg.n_frames(n_samples)
+    return frames * per_frame, 4 * (batch * n_samples + frames * n_out)
+
+
+def kernel_record(name, source, replaces, max_err, ms, plain_ms, work,
+                  device_name) -> dict:
+    flops, nbytes = work
+    peak_name, (bw, f32_peak) = card_peaks(device_name)
+    t_ops, t_bytes = flops / f32_peak * 1e3, nbytes / bw * 1e3
+    rec = {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": None,  # filled from its path's run
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # no single PyTorch call computes DFT -> power -> mel -> log (->
+        # DCT): torch.stft is an FFT and covers only the first stage
+        "library_ms": None,
+    }
+    log(f"[kernels] {name}: max |err| {max_err:.3e}; kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.3f} ms by "
+        f"{rec['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"{peak_name} peaks)")
+    return rec
 
 
 def phase_kernels(seed: int, device_name: str) -> dict:
     import numpy as np
     import torch
 
-    from cmoop_audio_processing_torch.frontend.cuda_kernels import (
-        mfcc_fused,
-        mfcc_fused_reference,
-    )
+    from cmoop_audio_processing_torch.frontend import cuda_kernels as ck
     from cmoop_audio_processing_torch.frontend.features import FrontendConfig
 
-    cfg = FrontendConfig(hop_length=KWS_HOP, n_mels=40, n_mfcc=13)
     rng = np.random.default_rng(seed)
+    records = {}
+
+    cfg = FrontendConfig(hop_length=KWS_HOP, n_mels=40, n_mfcc=13)
     y = torch.as_tensor(synth_clips(rng, 4096, KWS_N_SAMPLES), device="cuda")
-    got = mfcc_fused(y, cfg)
-    want = mfcc_fused_reference(y, cfg)
-    torch.cuda.synchronize()
-    n_frames = cfg.n_frames(KWS_N_SAMPLES)
-    assert got.shape == want.shape == (4096, n_frames, 13), got.shape
-    assert bool(torch.isfinite(got).all())
-    err = (got - want).abs()
-    max_err = float(err.max())
-    tol = 3e-2 + 1e-3 * want.abs()
-    if not bool((err <= tol).all()):
-        raise AssertionError(
-            f"mfcc_fused disagrees with its plain version: max |err| "
-            f"{max_err} ({int((err > tol).sum())} elements out of tolerance)"
-        )
-    ms = cuda_time_ms(lambda: mfcc_fused(y, cfg), reps=20)
-    plain_ms = cuda_time_ms(lambda: mfcc_fused_reference(y, cfg), reps=5)
-    frames = 4096 * n_frames
-    flops = frames * (2 * cfg.n_fft * 2 * cfg.n_bins
-                      + 2 * cfg.n_bins * cfg.n_mels + 2 * cfg.n_mels * cfg.n_mfcc)
-    nbytes = 4 * (y.numel() + frames * cfg.n_mfcc + cfg.n_fft * 2 * cfg.n_bins
-                  + cfg.n_bins * cfg.n_mels + cfg.n_mels * cfg.n_mfcc)
-    peak_name, (bw, f32_peak) = card_peaks(device_name)
-    t_ops, t_bytes = flops / f32_peak * 1e3, nbytes / bw * 1e3
-    rec = {
-        "name": "mfcc_fused",
-        "route": "cuda",
-        "source": "cmoop_audio_processing_torch/csrc/mfcc_fused.cu",
-        "replaces": "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:160",
-        "launches": None,  # filled from the main path's run
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        # no single PyTorch call computes DFT -> power -> mel -> dB -> DCT
-        "library_ms": None,
-    }
-    log(f"[kernels] mfcc_fused on (4096, {KWS_N_SAMPLES}): max |err| "
-        f"{max_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} ({flops / 1e9:.1f} "
-        f"GFLOP, {nbytes / 1e6:.1f} MB; {peak_name} peaks)")
-    return {"mfcc_fused": rec}
+    got = ck.mfcc_fused(y, cfg)
+    assert got.shape == (4096, cfg.n_frames(KWS_N_SAMPLES), 13), got.shape
+    max_err = check_close("mfcc_fused", got, ck.mfcc_fused_reference(y, cfg))
+    records["mfcc_fused"] = kernel_record(
+        "mfcc_fused", "cmoop_audio_processing_torch/csrc/mfcc_fused.cu",
+        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:160", max_err,
+        cuda_time_ms(lambda: ck.mfcc_fused(y, cfg), reps=20),
+        cuda_time_ms(lambda: ck.mfcc_fused_reference(y, cfg), reps=5),
+        # the DCT-II: n_mels x n_mfcc multiply-adds
+        frontend_work(cfg, 4096, KWS_N_SAMPLES, cfg.n_mfcc,
+                      2 * cfg.n_mels * cfg.n_mfcc),
+        device_name,
+    )
+    del y, got
+
+    # the BirdCLEF shape: 512 5-s clips, 256,512 frames; frames of
+    # different clips share the kernel's 64-frame blocks
+    y = torch.as_tensor(synth_clips(rng, BIRD_CHECK_CLIPS, BIRD_N_SAMPLES),
+                        device="cuda")
+    db = FrontendConfig(log="db", top_db=80.0)
+    natural = FrontendConfig(log="natural")
+    n_frames = db.n_frames(BIRD_N_SAMPLES)
+    errs = []
+    for cfg in (db, natural):
+        got = ck.log_mel_fused(y, cfg)
+        assert got.shape == (BIRD_CHECK_CLIPS, n_frames, 40), got.shape
+        errs.append(check_close(f"log_mel_fused ({cfg.log})", got,
+                                ck.log_mel_fused_reference(y, cfg)))
+        del got
+    log(f"[kernels] log_mel_fused max |err|: db+top_db {errs[0]:.3e}, "
+        f"natural {errs[1]:.3e}")
+    records["log_mel_fused"] = kernel_record(
+        "log_mel_fused", "cmoop_audio_processing_torch/csrc/log_mel_fused.cu",
+        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:122", max(errs),
+        # the path's mode (dB, top_db 80), the wrapper's top_db step included
+        cuda_time_ms(lambda: ck.log_mel_fused(y, db), reps=20),
+        cuda_time_ms(lambda: ck.log_mel_fused_reference(y, db), reps=5),
+        # top_db: a max, a subtract and a clamp per output
+        frontend_work(db, BIRD_CHECK_CLIPS, BIRD_N_SAMPLES, db.n_mels,
+                      3 * db.n_mels),
+        device_name,
+    )
+    return records
 
 
 def phase_extract(seed: int, device: str, n_wavs: int, data_dir: str) -> None:
     import numpy as np
 
-    from cmoop_audio_processing_torch.data.loaders import save_npy_dir
+    from cmoop_audio_processing_torch.data.loaders import (
+        save_npy_dir,
+        three_way_split,
+    )
     from cmoop_audio_processing_torch.frontend import reference_impl
     from cmoop_audio_processing_torch.frontend.features import (
         FrontendConfig,
@@ -219,7 +307,7 @@ def phase_extract(seed: int, device: str, n_wavs: int, data_dir: str) -> None:
                                    cfg.n_mels)
         err = float(np.abs(feats[i] - want).max())
         assert err <= 3e-2, f"clip {i}: MFCC off the float64 oracle by {err}"
-    tr, va, te = stratified_split(rng, labels)
+    tr, va, te = three_way_split(labels, 0.3, 0.5, seed)
     save_npy_dir({
         "x_train": feats[tr], "y_train": labels[tr],
         "x_val": feats[va], "y_val": labels[va],
@@ -251,63 +339,165 @@ SMOKE_GENOMES = [
 ]
 
 
-def phase_train(device: str, data_dir: str, epochs: int) -> None:
-    import dataclasses
+def phase_train(tag: str, device: str, data_dir: str, genomes, cfg,
+                min_acc: float) -> None:
+    """``PopulationEvaluator.evaluate`` under ``cfg`` on ``genomes``, twice:
+    the fitness must repeat bit for bit and the best genome must pass
+    ``min_acc``."""
+    import torch
 
-    from cmoop_audio_processing_torch.core.config import DataConfig, TrainConfig
+    from cmoop_audio_processing_torch.core.config import DataConfig
     from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
     from cmoop_audio_processing_torch.engine.evaluator import PopulationEvaluator
 
-    data = prepare_dataset(DataConfig(source="npy", path=data_dir))
-    cfg = dataclasses.replace(TrainConfig(), epochs=epochs,
-                              compute_dtype="bfloat16")
+    data = prepare_dataset(DataConfig(source="npy", path=data_dir,
+                                      num_classes=cfg.num_classes))
+    torch.cuda.reset_peak_memory_stats()
     runs = []
     for _ in range(2):
         ev = PopulationEvaluator(data, cfg, device=device)
         t0 = time.perf_counter()
-        runs.append(ev.evaluate(SMOKE_GENOMES, seed=7))
-        log(f"[train] {len(SMOKE_GENOMES)} genomes, {ev.timings[-1]['launches']} "
+        runs.append(ev.evaluate(genomes, seed=7))
+        log(f"[{tag}] {len(genomes)} genomes, {ev.timings[-1]['launches']} "
             f"populations, {time.perf_counter() - t0:.2f} s")
     for fit in runs[0]:
         assert all(v == v and abs(v) != float("inf") for v in fit), fit
     if runs[0] != runs[1]:
         raise AssertionError(f"fitness not repeatable: {runs[0]} vs {runs[1]}")
     best = max(acc for acc, _, _ in runs[0])
-    assert best > 0.5, f"no genome learned the 10-class task (best acc {best})"
-    for g, (acc, size, fpr) in zip(SMOKE_GENOMES, runs[0]):
-        log(f"[train]   f={g['filters']} k={g['kernel_size']} "
+    assert best > min_acc, (
+        f"no genome learned the {cfg.num_classes}-class task (best acc {best})")
+    for g, (acc, size, fpr) in zip(genomes, runs[0]):
+        log(f"[{tag}]   f={g['filters']} k={g['kernel_size']} "
             f"blocks={g['residual_blocks']} fc={g['fc_layers']} "
             f"bn={g['use_bn']} do={g['use_dropout']}: acc={acc!r} "
             f"size={size!r} MB fpr={fpr!r}")
+    log(f"[{tag}] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def phase_search(device: str, data_dir: str, out_dir: str, epochs: int,
-                 pop: int, gens: int) -> None:
+def phase_search(tag: str, preset: str, device: str, data_dir: str,
+                 out_dir: str, epochs: int, pop: int, gens: int) -> None:
+    """The CLI on ``preset``: its per-generation CSV and its final front,
+    under the reference script's own file names, must carry the reference
+    schema, and the front must hold at least one feasible genome."""
     from cmoop_audio_processing_torch.cli.main import main as cli_main
+    from cmoop_audio_processing_torch.core.config import get_preset
     from cmoop_audio_processing_torch.core.genome import GENE_ORDER
 
     t0 = time.perf_counter()
     rc = cli_main([
-        "--preset", "nsga_penalty", "--source", "npy", "--data-path", data_dir,
+        "--preset", preset, "--source", "npy", "--data-path", data_dir,
         "--device", device, "--max-gen", str(gens), "--pop-size", str(pop),
         "--epochs", str(epochs), "--out", out_dir,
     ])
     assert rc == 0, rc
-    run_dir = os.path.join(out_dir, "nsga_penalty")
+    run_dir = os.path.join(out_dir, preset)
+    suffix = get_preset(preset).artifact_suffix
+    suffix = f"_{suffix}" if suffix else ""
     with open(os.path.join(run_dir, "all_generations.csv"), newline="") as f:
         rows = list(csv.DictReader(f))
     gen_cols = ["Generation", "Accuracy", "Size_MB", "FPR", "CV", *GENE_ORDER]
     assert rows and list(rows[0]) == gen_cols, rows[:1]
     assert sorted({int(r["Generation"]) for r in rows}) == list(range(gens))
-    with open(os.path.join(run_dir, "final_pareto.csv"), newline="") as f:
+    with open(os.path.join(run_dir, f"final_pareto{suffix}.csv"), newline="") as f:
         front = list(csv.reader(f))
-    if len(front) > 1:
-        assert front[0] == ["Accuracy", "Size_MB", "FPR", *GENE_ORDER], front[0]
-    assert os.path.exists(os.path.join(run_dir, "all_generations.xlsx"))
+    # an empty front is written as a bare header line: nothing to check
+    assert len(front) > 1, f"{preset}: no feasible genome in the final front"
+    assert front[0] == ["Accuracy", "Size_MB", "FPR", *GENE_ORDER], front[0]
+    assert os.path.exists(os.path.join(run_dir, f"all_generations{suffix}.xlsx"))
+    stages: dict = {}
+    with open(os.path.join(run_dir, "progress.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["event"] == "stage" and rec["stage"] != "generation":
+                stages[rec["stage"]] = stages.get(rec["stage"], 0.0) + rec["seconds"]
     best = max(float(r["Accuracy"]) for r in rows)
-    log(f"[search] nsga_penalty pop {pop} x {gens} gens in "
+    log(f"[{tag}] {preset} pop {pop} x {gens} gens in "
         f"{time.perf_counter() - t0:.1f} s; best val acc {best!r}; front "
-        f"{len(front) - 1} rows")
+        f"{len(front) - 1} rows; stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+
+def synth_birds(rng, per_class: int):
+    """Class-dependent 5-s 'calls' that a CNN ending in global average
+    pooling can tell apart by local shape: class k repeats a 0.15-s
+    syllable whose sweep (falling, flat or rising), trill (15 Hz notes or
+    one tone) and harmonics (one or three) are set by k, at a class-specific
+    rate, with a random pitch, phase, gain and noise floor."""
+    import numpy as np
+
+    sr = 16000
+    labels = np.repeat(np.arange(BIRD_CLASSES), per_class)
+    t = np.arange(BIRD_N_SAMPLES) / sr
+    wavs = np.empty((len(labels), BIRD_N_SAMPLES), np.float32)
+    syl = 0.15  # syllable length, s
+    for i, k in enumerate(labels):
+        f0 = rng.uniform(600.0, 1200.0)
+        sweep = (-0.5, 0.0, 0.8)[k % 3] * f0  # over one syllable
+        rate = 2.0 + (k % 4)  # syllables per second
+        pos = (t - rng.uniform(0.0, 1.0 / rate)) % (1.0 / rate)
+        frac = np.clip(pos / syl, 0, 1)
+        env = np.where(pos < syl, np.sin(np.pi * frac), 0.0)
+        if (k // 3) % 2:
+            env = env * (np.sin(2 * np.pi * 15.0 * pos) > 0)
+        phase = 2 * np.pi * np.cumsum(f0 + sweep * frac) / sr
+        tone = sum(np.sin(h * phase) / h for h in (1, 2, 3)[:1 + 2 * (k // 6)])
+        y = rng.uniform(0.2, 0.7) * env * tone
+        wavs[i] = y + rng.uniform(0.005, 0.03) * rng.standard_normal(BIRD_N_SAMPLES)
+    return wavs, labels
+
+
+def phase_bird_extract(seed: int, device: str, wav_dir: str,
+                       data_dir: str) -> None:
+    import numpy as np
+
+    from cmoop_audio_processing_torch.cli import extract_features as cli
+    from cmoop_audio_processing_torch.data.loaders import load_npy_dir
+    from cmoop_audio_processing_torch.frontend import reference_impl
+    from cmoop_audio_processing_torch.frontend.audio_io import save_wav
+
+    rng = np.random.default_rng(seed + 2)
+    wavs, labels = synth_birds(rng, BIRD_PER_CLASS)
+    shutil.rmtree(wav_dir, ignore_errors=True)
+    for i, (y, k) in enumerate(zip(wavs, labels)):
+        os.makedirs(os.path.join(wav_dir, f"call_{k:02d}"), exist_ok=True)
+        save_wav(os.path.join(wav_dir, f"call_{k:02d}", f"{i:04d}.wav"), y, 16000)
+    t0 = time.perf_counter()
+    assert cli.main(["--wav-dir", wav_dir, "--out", data_dir, "--kind",
+                     "log_mel", "--duration", "5", "--layout", "npy",
+                     "--device", device]) == 0
+    secs = time.perf_counter() - t0
+    data = load_npy_dir(data_dir)
+    sizes = [len(data[f"x_{s}"]) for s in ("train", "val", "test")]
+    assert sum(sizes) == len(wavs), sizes
+    for split in ("train", "val", "test"):
+        x = data[f"x_{split}"]
+        assert x.shape[1:] == (501, 40) and np.isfinite(x).all(), (split, x.shape)
+    # the first training rows against the numpy float64 oracle (librosa's
+    # conventions), on the 16-bit wavs the CLI read
+    paths, file_labels, _ = cli.collect_wavs(wav_dir)
+    train, _, _ = cli.split_indices(file_labels, (0.7, 0.15, 0.15), 42)
+    for j in range(4):
+        clip = cli.load_clip(paths[train[j]], 16000, BIRD_N_SAMPLES)
+        want = reference_impl.log_mel_spectrogram(clip.astype(np.float64),
+                                                  top_db=80.0)
+        err = float(np.abs(data["x_train"][j] - want).max())
+        assert err <= 3e-2, f"row {j}: log-mel off the float64 oracle by {err}"
+        assert data["y_train"][j] == file_labels[train[j]]
+    log(f"[bird-extract] {len(wavs)} wavs -> CLI -> (n, 501, 40) log-mel in "
+        f"{secs:.2f} s; split {sizes[0]}/{sizes[1]}/{sizes[2]} -> "
+        f"{os.path.relpath(data_dir, ROOT)}")
+
+
+BIRD_GENOMES = [SMOKE_GENOMES[0], SMOKE_GENOMES[1]]  # widest, narrowest
+
+
+def read_launches(records: dict, names, counts: dict, path: str) -> None:
+    for name in names:
+        records[name]["launches"] = counts[name]
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the {path} path")
 
 
 def main(argv=None) -> int:
@@ -323,6 +513,7 @@ def main(argv=None) -> int:
 
     if not os.path.abspath(port.__file__).startswith(ROOT + os.sep):
         sys.exit("chip_smoke: cmoop_audio_processing_torch is not in this checkout")
+    from cmoop_audio_processing_torch.core.config import TrainConfig
     from cmoop_audio_processing_torch.core.device import resolve_device
     from cmoop_audio_processing_torch.frontend import cuda_kernels
 
@@ -341,14 +532,24 @@ def main(argv=None) -> int:
     data_dir = os.path.join(WORK, "kws_npy")
     cuda_kernels.reset_launch_counts()
     phase_extract(args.seed, "cuda", N_WAVS, data_dir)
-    phase_train("cuda", data_dir, epochs=4)
-    phase_search("cuda", data_dir, os.path.join(WORK, "results"), epochs=3,
-                 pop=8, gens=2)
-    counts = dict(cuda_kernels.launch_counts)
-    for kname, rec in records.items():
-        rec["launches"] = counts[kname]
-        if counts[kname] <= 0:
-            raise AssertionError(f"kernel {kname} never launched on the main path")
+    phase_train("train", "cuda", data_dir, SMOKE_GENOMES,
+                TrainConfig(epochs=4, compute_dtype="bfloat16"), min_acc=0.5)
+    phase_search("search", "nsga_penalty", "cuda", data_dir,
+                 os.path.join(WORK, "results"), epochs=3, pop=8, gens=2)
+    read_launches(records, ["mfcc_fused"], cuda_kernels.launch_counts, "KWS")
+
+    bird_dir = os.path.join(WORK, "bird_npy")
+    cuda_kernels.reset_launch_counts()
+    phase_bird_extract(args.seed, "cuda", os.path.join(WORK, "bird_wavs"),
+                       bird_dir)
+    phase_train("bird-train", "cuda", bird_dir, BIRD_GENOMES,
+                TrainConfig(num_classes=BIRD_CLASSES, template="B", epochs=4,
+                            compute_dtype="bfloat16"), min_acc=BIRD_MIN_ACC)
+    phase_search("bird-search", "sa_nsga_penalty", "cuda", bird_dir,
+                 os.path.join(WORK, "results"), epochs=BIRD_SEARCH_EPOCHS,
+                 pop=6, gens=2)
+    read_launches(records, ["log_mel_fused"], cuda_kernels.launch_counts,
+                  "BirdCLEF")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -5,6 +5,9 @@ Every reference script is a preset name, as in the JAX package's CLI:
     python -m cmoop_audio_processing_torch.cli.main --preset nsga_penalty \
         --source npy --data-path /data/KWS_npy --out results/
 
+    python -m cmoop_audio_processing_torch.cli.main --preset sa_nsga_penalty \
+        --source npy --data-path /data/birdclef_npy --out results/
+
     python -m cmoop_audio_processing_torch.cli.nsga_penalty --fake-eval
 
 The parser is the JAX CLI's plus ``--device {cuda,cpu}`` (default cuda;
@@ -13,8 +16,10 @@ reference's artifact set into <out>/<preset>/: per-generation records,
 periodic + final Pareto CSVs, all-generations workbook, progress JSONL,
 checkpoint (resumable with --resume).
 
-This port carries the plain NSGA-II presets. Options it does not carry yet
-exit with a message naming their ROADMAP.md item.
+This port carries the plain NSGA-II presets and the surrogate-assisted
+SA-NSGA-II ones (``algorithm == "sa_nsga2"``; their GP fits run on
+``--device``). Options it does not carry yet exit with a message naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,9 +33,12 @@ from typing import Optional
 from ..core.config import PRESETS, ExperimentConfig, get_preset
 
 
+SUPPORTED_ALGORITHMS = ("nsga2", "sa_nsga2")
+
+
 def _not_yet(what: str) -> str:
     return (f"{what} is not in the PyTorch port yet (ROADMAP.md, "
-            "'Left out of the first slice')")
+            "'Left out of the port so far')")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,19 +80,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard each training batch over M devices; not in "
                         "this port yet")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="device of the training engine (default cuda)")
+                   help="device of the training engine and the GP fits "
+                        "(default cuda)")
     return p
 
 
 def check_supported(args) -> None:
     """Exit with a clear message for options this port does not carry."""
     cfg = get_preset(args.preset)
-    if cfg.algorithm != "nsga2":
+    if cfg.algorithm not in SUPPORTED_ALGORITHMS:
         raise SystemExit(
             _not_yet(f"preset {args.preset!r} (driver {cfg.algorithm!r})")
-            + "; the nsga2 presets are "
+            + "; the presets it carries are "
             + ", ".join(sorted(n for n, c in PRESETS.items()
-                               if c.algorithm == "nsga2"))
+                               if c.algorithm in SUPPORTED_ALGORITHMS))
         )
     if args.mesh or args.mesh_data != 1:
         raise SystemExit(_not_yet("--mesh/--mesh-data (multi-GPU)"))
@@ -158,7 +167,8 @@ def _emit_artifact_aliases(reporter, suffix: Optional[str]) -> None:
             shutil.copy(src, os.path.join(reporter.dir, alias))
 
 
-def run(cfg: ExperimentConfig, evaluator, resume: bool = False):
+def run(cfg: ExperimentConfig, evaluator, resume: bool = False,
+        device="cuda"):
     from ..utils.reporting import RunReporter
 
     reporter = RunReporter(
@@ -170,11 +180,18 @@ def run(cfg: ExperimentConfig, evaluator, resume: bool = False):
     if not resume and os.path.exists(ck):
         os.unlink(ck)
 
-    if cfg.algorithm != "nsga2":
-        raise ValueError(_not_yet(f"driver {cfg.algorithm!r}"))
-    from ..algorithms.nsga2 import run_nsga2
+    if cfg.algorithm == "nsga2":
+        from ..algorithms.nsga2 import run_nsga2
 
-    result = run_nsga2(cfg.search, evaluator, reporter, checkpoint_path=ck)
+        result = run_nsga2(cfg.search, evaluator, reporter, checkpoint_path=ck)
+    elif cfg.algorithm == "sa_nsga2":
+        from ..algorithms.sa_nsga2 import run_sa_nsga2
+
+        result = run_sa_nsga2(
+            cfg.search, evaluator, reporter, checkpoint_path=ck, device=device
+        )
+    else:
+        raise ValueError(_not_yet(f"driver {cfg.algorithm!r}"))
     _emit_artifact_aliases(reporter, cfg.artifact_suffix)
     return result
 
@@ -186,7 +203,7 @@ def main(argv: Optional[list] = None, preset: Optional[str] = None) -> int:
     check_supported(args)
     cfg = config_from_args(args)
     evaluator = make_evaluator(cfg, args.fake_eval, args.device)
-    pareto, _ = run(cfg, evaluator, resume=args.resume)
+    pareto, _ = run(cfg, evaluator, resume=args.resume, device=args.device)
     print(f"\nFinal Pareto-optimal feasible solutions ({len(pareto)}):")
     for sol in pareto:
         m = sol["metrics"]

@@ -4,37 +4,22 @@
 // Replaces cmoop_audio_processing_tpu/frontend/pallas_kernels.py::mfcc_fused
 // (the Pallas body _mfcc_kernel -> _logmel_tile). Same function, without the
 // TPU's tiling: no 128-lane padding (only the n_mels real mel columns enter
-// the DCT, so no padded column can add a log10(amin) term), and the kernel
-// gathers its own frames from the waveform, reflecting at the edges, where
-// the TPU version had to frame in XLA because Mosaic forbids unaligned
-// VMEM slices.
+// the DCT, so no padded column can add a log10(amin) term).
 //
-// What bounds it: per frame the DFT GEMM costs 2*n_fft*2*n_bins FLOPs
-// (2*512*514 at the KWS shape), the mel and DCT GEMMs 2*257*40 + 2*40*13;
-// about 548 kFLOP against ~1.5 KB of traffic (hop new samples of the
-// waveform plus n_mfcc outputs, the constant matrices staying in L2). That
-// is ~370 FLOP/byte, so on an H100 the kernel is bound by f32 CUDA-core
-// arithmetic, never by memory. The design therefore:
-//   * keeps the (T, 2K) projection and the (T, K) power in registers and
-//     shared memory only: they never reach device memory, which is what
-//     the TPU kernel's fusion bought;
-//   * runs the DFT as a register-tiled f32 GEMM (each thread 4 frames x 4
-//     bins x {re, im} = 32 accumulators), full FFMA with no TF32, because
-//     the librosa match needs full f32 (the TPU kernel used
-//     Precision.HIGHEST for the same reason);
-//   * accumulates mel += power @ M[chunk] per bin chunk, so the power
-//     spectrogram of a chunk is consumed right after it is made.
-// tensor-core paths (wgmma with 3xTF32 split operands) are left for later.
+// The frame gather, DFT, power and mel stages are mel_tile.cuh's, shared
+// with log_mel_fused.cu; its header states what bounds the function on an
+// H100 (memory traffic), what limits this design (its dense-GEMM DFT on
+// f32 CUDA cores) and what the design does about it. The DCT adds
+// 2*n_mels*n_mfcc FLOPs per frame and writes n_mfcc floats.
 
 #include <cuda_runtime.h>
 
+#include "mel_tile.cuh"
+
 namespace {
 
-constexpr int TF = 64;       // frames per block
-constexpr int KC = 64;       // DFT bins per chunk
-constexpr int NC = 32;       // DFT depth (samples) per shared-memory stage
-constexpr int THREADS = 256; // 16 x 16 thread grid, 4 x 4 register tile each
-constexpr int LOADS_F = TF * NC / THREADS;  // frame samples each thread loads
+using mel_tile::TF;
+using mel_tile::THREADS;
 
 __global__ void __launch_bounds__(THREADS)
 mfcc_fused_kernel(const float* __restrict__ y, const float* __restrict__ w,
@@ -43,112 +28,12 @@ mfcc_fused_kernel(const float* __restrict__ y, const float* __restrict__ w,
                   long long total_frames, int n_fft, int n_bins, int hop,
                   int pad, int n_mels, int n_mfcc) {
   extern __shared__ float smem[];
-  float* fs = smem;                    // [NC][TF + 1] frame samples, transposed
-  float* wc = fs + NC * (TF + 1);      // [NC][KC] cos rows of this stage
-  float* ws = wc + NC * KC;            // [NC][KC] -sin rows of this stage
-  float* ps = ws + NC * KC;            // [TF][KC + 1] power of this bin chunk
-  float* ms = ps + TF * (KC + 1);      // [KC][n_mels] mel rows of this chunk
-  float* acc = ms + KC * n_mels;       // [TF][n_mels] mel accumulator
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // bin lane: bins tx + 16 * j
-  const int ty = tid / 16;  // frame lane: frames ty + 16 * i
   const long long frame0 = (long long)blockIdx.x * TF;
-  const int two_k = 2 * n_bins;
-
-  // the frames this thread gathers: always the same LOADS_F frames, at
-  // sample offset tid % NC within each stage
-  const int nl = tid % NC;
-  long long ybase[LOADS_F];
-  int tstart[LOADS_F];
-  bool fvalid[LOADS_F];
-#pragma unroll
-  for (int i = 0; i < LOADS_F; ++i) {
-    const int f = (tid + i * THREADS) / NC;
-    const long long r = frame0 + f;
-    fvalid[i] = r < total_frames;
-    const long long b = fvalid[i] ? r / n_frames : 0;
-    const int t = fvalid[i] ? (int)(r - b * n_frames) : 0;
-    ybase[i] = b * (long long)n_samples;
-    tstart[i] = t * hop - pad;
-  }
-
+  float* acc = mel_tile::mel_power_tile(y, w, mel_w, smem, frame0, n_samples,
+                                        n_frames, total_frames, n_fft, n_bins,
+                                        hop, pad, n_mels);
+  const int tid = threadIdx.x;
   const int n_acc = TF * n_mels;
-  for (int e = tid; e < n_acc; e += THREADS) acc[e] = 0.f;
-
-  for (int k0 = 0; k0 < n_bins; k0 += KC) {
-    float are[4][4], aim[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) are[i][j] = aim[i][j] = 0.f;
-
-    for (int n0 = 0; n0 < n_fft; n0 += NC) {
-      __syncthreads();  // previous stage (or previous chunk's mel) consumed
-#pragma unroll
-      for (int i = 0; i < LOADS_F; ++i) {
-        const int f = (tid + i * THREADS) / NC;
-        float v = 0.f;
-        if (fvalid[i]) {
-          int j = tstart[i] + n0 + nl;
-          if (pad) {  // centred framing: numpy "reflect" (edge not repeated)
-            if (j < 0) j = -j;
-            if (j >= n_samples) j = 2 * (n_samples - 1) - j;
-          }
-          v = y[ybase[i] + j];
-        }
-        fs[nl * (TF + 1) + f] = v;
-      }
-      for (int e = tid; e < NC * KC; e += THREADS) {
-        const int n = e / KC, k = e % KC;
-        const bool ok = k0 + k < n_bins;
-        const float* row = w + (long long)(n0 + n) * two_k;
-        wc[e] = ok ? row[k0 + k] : 0.f;
-        ws[e] = ok ? row[n_bins + k0 + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int n = 0; n < NC; ++n) {
-        float a[4], c[4], s[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = fs[n * (TF + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          c[j] = wc[n * KC + tx + 16 * j];
-          s[j] = ws[n * KC + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            are[i][j] = fmaf(a[i], c[j], are[i][j]);
-            aim[i][j] = fmaf(a[i], s[j], aim[i][j]);
-          }
-      }
-    }
-
-    // power of this chunk -> shared memory; padded bins carry exact zeros
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(ty + 16 * i) * (KC + 1) + tx + 16 * j] =
-            are[i][j] * are[i][j] + aim[i][j] * aim[i][j];
-    for (int e = tid; e < KC * n_mels; e += THREADS) {
-      const int k = e / n_mels;
-      ms[e] = k0 + k < n_bins ? mel_w[(long long)(k0 + k) * n_mels + e % n_mels]
-                              : 0.f;
-    }
-    __syncthreads();
-    const int kmax = min(KC, n_bins - k0);
-    for (int e = tid; e < n_acc; e += THREADS) {
-      const int f = e / n_mels, m = e % n_mels;
-      float v = acc[e];
-      for (int k = 0; k < kmax; ++k)
-        v = fmaf(ps[f * (KC + 1) + k], ms[k * n_mels + m], v);
-      acc[e] = v;
-    }
-  }
 
   // each thread owns the same accumulator entries throughout: the dB step
   // needs no barrier, the DCT (which reads whole rows) does
@@ -172,9 +57,7 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block needs for n_mels mel bands.
 size_t mfcc_fused_smem_bytes(int n_mels) {
-  return sizeof(float) * ((size_t)NC * (TF + 1) + 2 * NC * KC +
-                          TF * (KC + 1) + (size_t)KC * n_mels +
-                          (size_t)TF * n_mels);
+  return sizeof(float) * mel_tile::smem_floats(n_mels);
 }
 
 // y (batch, n_samples); w (n_fft, 2*n_bins) = [cos | -sin] with the window

@@ -10,14 +10,93 @@ Both return the same structure: dict with x_train/y_train/x_val/y_val/
 x_test/y_test as float32/int32 numpy arrays, y as 1-D class indices (the
 reference's trailing label axis is an implementation detail of Keras
 sparse-CE; we keep labels 1-D and document the equivalence).
+
+The stratified splits are ``stratified_split``, sklearn's
+``train_test_split(..., stratify=y)`` in numpy, index for index, so neither
+the HDF5 loader nor the extraction CLI needs sklearn.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Dict, Optional
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+
+
+def _approximate_mode(
+    class_counts: np.ndarray, n_draws: int, rng: np.random.RandomState
+) -> np.ndarray:
+    """sklearn.utils.extmath._approximate_mode: per-class draw counts near
+    the multivariate hypergeometric's mode, ties broken with ``rng``."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            inds = rng.choice(inds, size=add_now, replace=False)
+            floored[inds] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def stratified_split(
+    y: Sequence, test_size: float, seed: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(train, test) indices of a stratified shuffle split: the indices
+    ``sklearn.model_selection.train_test_split(x, y, test_size=test_size,
+    random_state=seed, stratify=y)`` takes, in its order
+    (StratifiedShuffleSplit._iter_indices)."""
+    y = np.asarray(y)
+    n = len(y)
+    if not 0.0 < test_size < 1.0:
+        raise ValueError(f"test_size={test_size} should be in (0, 1)")
+    n_test = math.ceil(test_size * n)
+    n_train = n - n_test
+    classes, y_indices, class_counts = np.unique(
+        y, return_inverse=True, return_counts=True
+    )
+    if class_counts.min() < 2:
+        raise ValueError(
+            "the least populated classes have only 1 member: "
+            f"{classes[class_counts < 2].tolist()}"
+        )
+    if n_train < len(classes) or n_test < len(classes):
+        raise ValueError(
+            f"train ({n_train}) and test ({n_test}) sizes must each be at "
+            f"least the number of classes ({len(classes)})"
+        )
+    class_indices = np.split(
+        np.argsort(y_indices, kind="mergesort"), np.cumsum(class_counts)[:-1]
+    )
+    rng = np.random.RandomState(seed)
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train, test = [], []
+    for i in range(len(classes)):
+        perm = class_indices[i].take(rng.permutation(class_counts[i]), mode="clip")
+        train.extend(perm[: n_i[i]])
+        test.extend(perm[n_i[i] : n_i[i] + t_i[i]])
+    return rng.permutation(train), rng.permutation(test)
+
+
+def three_way_split(
+    y: Sequence, holdout: float, test_of_holdout: float, seed: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(train, val, test) indices: a stratified split of ``holdout`` of the
+    samples off the training set, then of ``test_of_holdout`` of those into
+    the test set, both with ``seed`` (the reference's two chained
+    ``train_test_split`` calls, sa_nsga_penalty.py:71-85)."""
+    y = np.asarray(y)
+    train, rest = stratified_split(y, holdout, seed)
+    val, test = stratified_split(y[rest], test_of_holdout, seed)
+    return train, rest[val], rest[test]
 
 
 def load_npy_dir(data_path: str) -> Dict[str, np.ndarray]:
@@ -43,7 +122,6 @@ def load_hdf5(
     ``test_size``, then temp into val/test 50/50, both stratified with
     random_state=42."""
     import h5py
-    from sklearn.model_selection import train_test_split
 
     with h5py.File(filepath, "r") as hf:
         data = {name: hf[name][:] for name in hf.keys()}
@@ -56,19 +134,14 @@ def load_hdf5(
             c.decode() if isinstance(c, bytes) else str(c) for c in data["classes"]
         ]
 
-    x_train, x_temp, y_train, y_temp = train_test_split(
-        x, y, test_size=test_size, random_state=random_state, stratify=y
-    )
-    x_val, x_test, y_val, y_test = train_test_split(
-        x_temp, y_temp, test_size=0.5, random_state=random_state, stratify=y_temp
-    )
+    train, val, test = three_way_split(y, test_size, 0.5, random_state)
     out = {
-        "x_train": x_train,
-        "y_train": y_train,
-        "x_val": x_val,
-        "y_val": y_val,
-        "x_test": x_test,
-        "y_test": y_test,
+        "x_train": x[train],
+        "y_train": y[train],
+        "x_val": x[val],
+        "y_val": y[val],
+        "x_test": x[test],
+        "y_test": y[test],
     }
     if classes is not None:
         out["classes"] = classes

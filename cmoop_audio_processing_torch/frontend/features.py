@@ -10,8 +10,9 @@ Every stage after framing is a matrix product (GEMM-native DFT, no FFT):
 
 ``stft_power``, ``log_mel`` and ``mfcc`` are the plain PyTorch version of
 that chain, numerically held against frontend/reference_impl.py (librosa's
-conventions). On a CUDA device the MFCC chain runs as one hand-written
-kernel (frontend/cuda_kernels.py, csrc/mfcc_fused.cu).
+conventions). On a CUDA device the MFCC and log-mel chains each run as one
+hand-written kernel (frontend/cuda_kernels.py, csrc/mfcc_fused.cu and
+csrc/log_mel_fused.cu).
 
 All GEMMs are full float32. cuBLAS matmuls already are by default, but the
 flags are set explicitly because TF32 keeps ~3 decimal digits and breaks
@@ -153,8 +154,8 @@ def extract_features_device(
     waiting for it, so the caller can overlap host work (decoding the next
     batch) with this batch's device work.
 
-    On CUDA, ``kind="mfcc"`` always runs the fused kernel; ``log_mel`` has
-    no CUDA kernel yet and raises."""
+    On CUDA, ``kind="mfcc"`` and ``kind="log_mel"`` always run their fused
+    kernels; on the CPU, ``log_mel`` is the plain GEMM chain."""
     dev = resolve_device(device)
     y = torch.as_tensor(np.atleast_2d(np.asarray(wavs, np.float32)), device=dev)
     if kind == "mfcc":
@@ -163,10 +164,9 @@ def extract_features_device(
         return mfcc_fused(y.contiguous(), cfg)
     if kind == "log_mel":
         if dev.type == "cuda":
-            raise NotImplementedError(
-                "log_mel on CUDA waits for its fused kernel (ROADMAP.md, "
-                "'TPU kernels to port' item 2: log_mel_fused)"
-            )
+            from .cuda_kernels import log_mel_fused
+
+            return log_mel_fused(y.contiguous(), cfg)
         return log_mel(y, cfg)
     if kind == "stft_power":
         return stft_power(y, cfg)

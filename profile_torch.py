@@ -1,15 +1,23 @@
-"""Where the time of the PyTorch port's main path goes, on one CUDA card.
+"""Where the time of the PyTorch port's paths goes, on one CUDA card.
 
-    python3 profile_torch.py [--seed N] [--epochs E]
+    python3 profile_torch.py [--path kws|bird] [--seed N] [--epochs E]
 
-Builds chip_smoke.py's KWS workload (2000 class-dependent synthetic 1-s
-clips, 10 classes, through ``extract_features(kind="mfcc")`` into 45x13
-maps, stratified 70/15/15), then runs two stages under ``torch.profiler``:
+``--path kws`` (default) builds chip_smoke.py's KWS workload (2000
+class-dependent synthetic 1-s clips, 10 classes, through
+``extract_features(kind="mfcc")`` into 45x13 maps); ``--path bird`` its
+BirdCLEF workload (11 classes x 120 synthetic 5-s calls through
+``extract_features(kind="log_mel")`` into 501x40 maps). Both split 70/15/15,
+stratified, as the extraction CLI does. Then it runs these stages under
+``torch.profiler``:
 
-* extract — ``extract_features`` over the 2000 clips (batches of 500);
+* extract — ``extract_features`` over the clips (KWS: batches of 500;
+            BirdCLEF: 256, the extraction CLI's batch);
 * train   — ``PopulationEvaluator.evaluate`` in bf16 on chip_smoke's 8
-            genomes (widest and narrowest included), E epochs, after one
-            untimed 1-epoch warm-up.
+            genomes (widest and narrowest included; BirdCLEF: template B,
+            11 classes), E epochs, after one untimed 1-epoch warm-up;
+* gp_fit  — BirdCLEF only: one ``SurrogateManager.update`` of
+            ``sa_nsga_penalty`` (4 targets x 11 restarts x 200 Adam steps)
+            on a 64-genome archive, after one untimed update.
 
 For each stage it prints the host wall time without and with the profiler,
 the device busy time (sum of the kernels' device times), the device idle
@@ -81,6 +89,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--epochs", type=int, default=4)
+    parser.add_argument("--path", choices=["kws", "bird"], default="kws")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_torch: no CUDA device (torch.cuda.is_available() is False)")
@@ -88,6 +97,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from cmoop_audio_processing_torch.core.config import TrainConfig
     from cmoop_audio_processing_torch.core.device import resolve_device
+    from cmoop_audio_processing_torch.data.loaders import three_way_split
     from cmoop_audio_processing_torch.data.pipeline import (
         add_channel_axis,
         standardize_splits,
@@ -106,14 +116,22 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[device] {smi}", flush=True)
 
-    rng = np.random.default_rng(args.seed + 1)
-    wavs, labels = cs.synth_kws(rng, cs.N_WAVS)
-    cfg = FrontendConfig(hop_length=cs.KWS_HOP, n_mfcc=13)
+    if args.path == "kws":
+        rng = np.random.default_rng(args.seed + 1)
+        wavs, labels = cs.synth_kws(rng, cs.N_WAVS)
+        cfg, kind, batch = FrontendConfig(hop_length=cs.KWS_HOP, n_mfcc=13), "mfcc", 500
+        tcfg = TrainConfig(epochs=args.epochs, compute_dtype="bfloat16")
+    else:
+        rng = np.random.default_rng(args.seed + 2)
+        wavs, labels = cs.synth_birds(rng, cs.BIRD_PER_CLASS)
+        cfg, kind, batch = FrontendConfig(), "log_mel", 256
+        tcfg = TrainConfig(num_classes=cs.BIRD_CLASSES, template="B",
+                           epochs=args.epochs, compute_dtype="bfloat16")
 
     def extract():
         return np.concatenate([
-            extract_features(wavs[i:i + 500], cfg, kind="mfcc", device="cuda")
-            for i in range(0, len(wavs), 500)
+            extract_features(wavs[i:i + batch], cfg, kind=kind, device="cuda")
+            for i in range(0, len(wavs), batch)
         ])
 
     extract()  # build + warm-up
@@ -122,13 +140,12 @@ def main(argv=None) -> int:
                              / rec_x["wall_unprofiled_s"])
     report("extract", rec_x)
 
-    tr, va, te = cs.stratified_split(rng, labels)
+    tr, va, te = three_way_split(labels, 0.3, 0.5, args.seed)
     data = add_channel_axis(standardize_splits({
         "x_train": feats[tr], "y_train": labels[tr],
         "x_val": feats[va], "y_val": labels[va],
         "x_test": feats[te], "y_test": labels[te],
     }))
-    tcfg = TrainConfig(epochs=args.epochs, compute_dtype="bfloat16")
     PopulationEvaluator(data, dataclasses.replace(tcfg, epochs=1),
                         device="cuda").evaluate(cs.SMOKE_GENOMES, seed=7)
     ev = PopulationEvaluator(data, tcfg, device="cuda")
@@ -142,9 +159,33 @@ def main(argv=None) -> int:
     print(f"[train] {rec_t['populations']} populations, {rec_t['steps']} "
           f"optimizer steps, {rec_t['lane_epochs']} lane-epochs; "
           f"accs {[round(f[0], 4) for f in fits]}")
-    print(json.dumps({"device": name, "power": smi, "extract": rec_x,
-                      "train": rec_t}))
+    out = {"device": name, "power": smi, "path": args.path, "extract": rec_x,
+           "train": rec_t}
+    if args.path == "bird":
+        out["gp_fit"] = profile_gp_fit(args.seed)
+    print(json.dumps(out))
     return 0
+
+
+def profile_gp_fit(seed: int) -> dict:
+    """One sa_nsga_penalty surrogate refit on a 64-genome archive."""
+    from cmoop_audio_processing_torch.core.config import get_preset
+    from cmoop_audio_processing_torch.core.genome import all_genomes
+    from cmoop_audio_processing_torch.core.records import make_individual
+    from cmoop_audio_processing_torch.engine.evaluator import FakeEvaluator
+    from cmoop_audio_processing_torch.surrogate.manager import SurrogateManager
+
+    cons = get_preset("sa_nsga_penalty").search.constraints
+    fake = FakeEvaluator(num_classes=11, template="B", noise=0.01, seed=seed)
+    rng = np.random.default_rng(seed)
+    genomes = [all_genomes()[i] for i in rng.choice(288, 64, replace=False)]
+    records = [make_individual(g, *f, cons)
+               for g, f in zip(genomes, fake.evaluate(genomes, seed))]
+    mgr = SurrogateManager(seed=seed, device="cuda")
+    mgr.update(genomes, records)  # cuSOLVER set-up + warm-up
+    _, rec = profiled(lambda: mgr.update(genomes, records))
+    report("gp_fit", rec)
+    return rec
 
 
 if __name__ == "__main__":

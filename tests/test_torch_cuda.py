@@ -59,6 +59,27 @@ def test_mfcc_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
     torch.testing.assert_close(got, want, atol=3e-2, rtol=1e-3)
 
 
+@pytest.mark.parametrize("n,n_samples,cfg", [
+    (3, 80000, tf.FrontendConfig(log="db", top_db=80.0)),
+    (3, 80000, tf.FrontendConfig(log="natural")),
+    (5, 16000, tf.FrontendConfig(center=False)),
+    (2, 700, tf.FrontendConfig()),
+    (7, 16000, tf.FrontendConfig(top_db=None)),
+], ids=["birdclef_3x80000_db_top_db", "birdclef_3x80000_natural", "uncentred",
+        "short_clip", "shared_blocks_7x16000_raw_db"])
+def test_log_mel_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
+    """atol 3e-2 / rtol 1e-3, as for mfcc_fused. 7 clips of 101 frames put
+    frames of two clips in most 64-frame blocks."""
+    y = torch.as_tensor(_clips(n, n_samples), device=cuda)
+    before = tk.launch_counts["log_mel_fused"]
+    got = tk.log_mel_fused(y, cfg)
+    assert tk.launch_counts["log_mel_fused"] == before + 1
+    want = tk.log_mel_fused_reference(y, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, cfg.n_frames(n_samples), cfg.n_mels)
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=1e-3)
+
+
 def test_extract_features_on_cuda_goes_through_the_kernel(cuda):
     ys = _clips(4, 16000, seed=1)
     before = tk.launch_counts["mfcc_fused"]
@@ -66,13 +87,18 @@ def test_extract_features_on_cuda_goes_through_the_kernel(cuda):
     assert tk.launch_counts["mfcc_fused"] == before + 1
     want = tf.extract_features(ys, KWS, kind="mfcc", device="cpu")
     np.testing.assert_allclose(got, want, atol=3e-2, rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="log_mel_fused"):
-        tf.extract_features(ys, KWS, kind="log_mel", device="cuda")
+    before = tk.launch_counts["log_mel_fused"]
+    got = tf.extract_features(ys, KWS, kind="log_mel", device="cuda")
+    assert tk.launch_counts["log_mel_fused"] == before + 1
+    want = tf.extract_features(ys, KWS, kind="log_mel", device="cpu")
+    np.testing.assert_allclose(got, want, atol=3e-2, rtol=1e-3)
 
 
 def test_mfcc_fused_rejects_float64_on_cuda(cuda):
     with pytest.raises(ValueError):
         tk.mfcc_fused(torch.zeros(2, 16000, dtype=torch.float64, device=cuda), KWS)
+    with pytest.raises(ValueError):
+        tk.log_mel_fused(torch.zeros(2, 16000, dtype=torch.float64, device=cuda))
 
 
 def test_cuda_evaluation_repeats_bit_for_bit(cuda):
@@ -93,3 +119,26 @@ def test_cuda_evaluation_repeats_bit_for_bit(cuda):
             for _ in range(2)]
     assert runs[0] == runs[1]
     assert all(np.isfinite(v) for fit in runs[0] for v in fit)
+
+
+def test_sa_nsga2_gp_fits_repeat_bit_for_bit_on_the_card(cuda):
+    """The batched Cholesky NLL fits and their autograd under deterministic
+    mode: two fits from the same seeds give the same hyperparameters, and a
+    surrogate-assisted search repeats its records exactly."""
+    from cmoop_audio_processing_torch.algorithms.sa_nsga2 import run_sa_nsga2
+    from cmoop_audio_processing_torch.core.config import Constraints, SearchConfig
+    from cmoop_audio_processing_torch.engine.evaluator import FakeEvaluator
+    from cmoop_audio_processing_torch.surrogate.gp import GPConfig, fit_gp_multi
+
+    rng = np.random.default_rng(3)
+    x = rng.random((40, 8))
+    ys = [np.sin(3 * x[:, 0]), x[:, 1] ** 2, x[:, 2] - x[:, 3], x[:, 4]]
+    fits = [fit_gp_multi(x, ys, GPConfig(), seeds=[1, 2, 3, 4], device="cuda")
+            for _ in range(2)]
+    for a, b in zip(*fits):
+        assert (a.log_c, a.log_l, a.log_n) == (b.log_c, b.log_l, b.log_n)
+    cfg = SearchConfig(pop_size=8, max_gen=3, infill_percent=0.334, seed=5,
+                       constraints=Constraints(0.85, 2.5, 0.09))
+    runs = [run_sa_nsga2(cfg, FakeEvaluator(), device="cuda")[0] for _ in range(2)]
+    assert [(p["hparams"], p["objs"]) for p in runs[0]] == \
+        [(p["hparams"], p["objs"]) for p in runs[1]]

@@ -183,7 +183,7 @@ def test_real_cpu_run_on_default_synthetic_data(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--preset", "sa_nsga_penalty"],
+    ["--preset", "sa_nsga_penalty", "--launch-budget", "5"],
     ["--preset", "mobo_penalty"],
     ["--preset", "nsga_penalty", "--mesh", "2"],
     ["--preset", "nsga_penalty", "--fitness-cache", "cache.jsonl"],
@@ -193,5 +193,31 @@ def test_real_cpu_run_on_default_synthetic_data(tmp_path):
 ], ids=["sa_nsga2", "mobo", "mesh", "fitness_cache", "compaction",
         "launch_budget", "vmap"])
 def test_options_the_port_does_not_carry_exit_naming_the_roadmap(extra):
+    """The sa_nsga2 presets run (tests/test_torch_sa_nsga2.py); an option
+    the port does not carry still exits for them."""
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         tcli.main(extra + ["--fake-eval", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("preset", sorted(
+    n for n, c in tconfig.PRESETS.items() if c.algorithm == "sa_nsga2"))
+def test_sa_nsga2_presets_run_under_fake_eval(tmp_path, preset):
+    """Every sa_nsga2 preset runs (the PSI ones from a stage-1 front) and
+    writes its reference artifact names."""
+    from cmoop_audio_processing_torch.utils.reporting import write_csv
+
+    extra = []
+    if tconfig.PRESETS[preset].search.initializer == "psi":
+        seed_file = str(tmp_path / "stage1.csv")
+        write_csv(seed_file, [
+            {"Accuracy": 0.93, "Size_MB": 0.5, "FPR": 0.04, **g}
+            for g in all_genomes()[:6]
+        ])
+        extra = ["--psi-seed-file", seed_file]
+    assert tcli.main(["--preset", preset, "--fake-eval", "--max-gen", "2",
+                      "--pop-size", "6", "--device", "cpu", "--out",
+                      str(tmp_path)] + extra) == 0
+    suffix = tconfig.PRESETS[preset].artifact_suffix
+    run_dir = tmp_path / preset
+    assert (run_dir / f"final_pareto_{suffix}.csv").exists()
+    assert (run_dir / f"all_generations_{suffix}.xlsx").exists()

@@ -1,7 +1,8 @@
 """The PyTorch port's audio frontend against the JAX package and the numpy
-float64 oracle: the plain torch GEMM path (features.*) and the fused MFCC
-kernel's plain version (cuda_kernels.mfcc_fused_reference), which the CUDA
-kernel is held against on the card (tests/test_torch_cuda.py)."""
+float64 oracle: the plain torch GEMM path (features.*) and the fused
+kernels' plain versions (cuda_kernels.mfcc_fused_reference,
+cuda_kernels.log_mel_fused_reference), which the CUDA kernels are held
+against on the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,10 @@ from cmoop_audio_processing_torch.frontend import cuda_kernels as tk
 from cmoop_audio_processing_torch.frontend import features as tf
 from cmoop_audio_processing_tpu.frontend import features as jf
 from cmoop_audio_processing_tpu.frontend import reference_impl as ref
-from cmoop_audio_processing_tpu.frontend.pallas_kernels import mfcc_fused
+from cmoop_audio_processing_tpu.frontend.pallas_kernels import (
+    log_mel_fused,
+    mfcc_fused,
+)
 
 # the test workers share the CPU's cores: one intra-op thread per worker
 # keeps PyTorch's thread pool from oversubscribing them
@@ -114,6 +118,60 @@ def test_mfcc_fused_reference_uncentred_matches_jax():
     np.testing.assert_allclose(got, want, atol=3e-2, rtol=1e-3)
 
 
+@pytest.mark.parametrize("log,atol", [("natural", 2e-3), ("db", 2e-2)])
+def test_log_mel_fused_reference_matches_pallas_log_mel_fused(log, atol):
+    """The kernel's plain version against the Pallas kernel (interpret mode
+    on the CPU), at test_frontend.py's Pallas-vs-XLA tolerances."""
+    ys = _signals()
+    got = _port(tk.log_mel_fused_reference, ys, **CFG, log=log)
+    want = np.asarray(log_mel_fused(ys, jf.FrontendConfig(**CFG, log=log)))
+    assert got.shape == want.shape == (3, 101, 40)
+    np.testing.assert_allclose(got, want, atol=atol)
+
+
+def test_log_mel_fused_reference_matches_jax_log_mel_at_birdclef_shape():
+    """3 x 80000 samples -> 501 frames each: frames of different clips share
+    the CUDA kernel's 64-frame blocks, and the per-sample top_db step must
+    reference each clip's own maximum."""
+    ys = _birdclef_signals()
+    cfg = dict(CFG, log="db", top_db=80.0)
+    got = _port(tk.log_mel_fused_reference, ys, **cfg)
+    want = np.asarray(jf.log_mel(ys, jf.FrontendConfig(**cfg)))
+    assert got.shape == want.shape == (3, 501, 40)
+    np.testing.assert_allclose(got, want, atol=3e-2, rtol=1e-3)
+
+
+def test_wav_io_matches_the_jax_packages(tmp_path):
+    from cmoop_audio_processing_torch.frontend import audio_io as tio
+    from cmoop_audio_processing_tpu.frontend import audio_io as jio
+
+    y = tone(440, dur=0.25) + tone(3100, dur=0.25, amp=0.3)
+    tio.save_wav(str(tmp_path / "t.wav"), y, 22050)
+    jio.save_wav(str(tmp_path / "j.wav"), y, 22050)
+    assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+    got, sr = tio.load_wav(str(tmp_path / "t.wav"))
+    assert sr == 22050
+    np.testing.assert_array_equal(got, jio.load_wav(str(tmp_path / "t.wav"))[0])
+    np.testing.assert_array_equal(tio.resample(got, 22050, 16000),
+                                  jio.resample(got, 22050, 16000))
+
+
+def test_an_edited_shared_header_rebuilds_both_kernels(tmp_path, monkeypatch):
+    """build_library names a library by source_digest: editing the header
+    the kernels include changes both kernels' digests, editing one kernel
+    only its own."""
+    for name in ("mfcc_fused.cu", "log_mel_fused.cu", "mel_tile.cuh"):
+        (tmp_path / name).write_text("// " + name)
+    monkeypatch.setattr(tk, "CSRC_DIR", str(tmp_path))
+    before = {k: tk.source_digest(k) for k in ("mfcc_fused", "log_mel_fused")}
+    (tmp_path / "mel_tile.cuh").write_text("// edited")
+    after = {k: tk.source_digest(k) for k in before}
+    assert all(before[k] != after[k] for k in before)
+    (tmp_path / "log_mel_fused.cu").write_text("// edited")
+    assert tk.source_digest("mfcc_fused") == after["mfcc_fused"]
+    assert tk.source_digest("log_mel_fused") != after["log_mel_fused"]
+
+
 def test_kernel_gather_equals_reflect_pad_framing():
     """The kernel's index arithmetic (reflect at both edges) is numpy's
     'reflect' padding followed by framing, bit for bit."""
@@ -135,6 +193,7 @@ def test_extract_features_cpu_runs_the_plain_version_without_launching():
     lm = tf.extract_features(ys, tf.FrontendConfig(**CFG), kind="log_mel",
                              device="cpu")
     assert lm.shape == (3, 101, 40)
+    assert tk.launch_counts == {"mfcc_fused": 0, "log_mel_fused": 0}
 
 
 def test_extract_features_refuses_cuda_without_a_gpu():
@@ -144,14 +203,25 @@ def test_extract_features_refuses_cuda_without_a_gpu():
         tf.extract_features(_signals(), kind="mfcc")
 
 
-@pytest.mark.parametrize("bad", ["float64", "1d", "short"])
-def test_mfcc_fused_rejects_inputs_the_kernel_does_not_take(bad):
+def _bad_input(bad):
     y = torch.zeros(2, 16000)
     if bad == "float64":
         y = y.double()
     elif bad == "1d":
         y = y[0]
-    else:
+    elif bad == "short":
         y = y[:, :200]
+    return y
+
+
+@pytest.mark.parametrize("bad", ["float64", "1d", "short"])
+def test_mfcc_fused_rejects_inputs_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
-        tk.mfcc_fused(y, tf.FrontendConfig())
+        tk.mfcc_fused(_bad_input(bad), tf.FrontendConfig())
+
+
+@pytest.mark.parametrize("bad", ["float64", "1d", "short", "log_mode"])
+def test_log_mel_fused_rejects_inputs_the_kernel_does_not_take(bad):
+    cfg = tf.FrontendConfig(log="log2" if bad == "log_mode" else "db")
+    with pytest.raises(ValueError):
+        tk.log_mel_fused(_bad_input(bad), cfg)
