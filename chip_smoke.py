@@ -10,13 +10,18 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. build   — compile every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
-             per kernel, all started together;
+             per kernel, all started together; ptxas's registers and
+             spills for each kernel function;
 2. kernels — each kernel against its plain PyTorch version on the card, at
              its path's shapes (atol 3e-2, rtol 1e-3, the JAX package's
              Pallas-vs-XLA tolerance), with kernel, plain and bound times:
              mfcc_fused at 4096 1-s clips, hop 360, 40 mels, 13 MFCC;
              log_mel_fused at 512 5-s clips, hop 160, 40 mels, in dB with
-             top_db 80 and in natural-log mode;
+             top_db 80 and in natural-log mode. n_fft 512 takes the FFT
+             route; each kernel's dense route is checked and timed at the
+             same shapes with n_fft 400. Beside them, the time of a cuFFT
+             chain the port never calls (torch.stft -> |.|^2 -> mel -> log
+             (-> DCT)), as a yardstick;
 3. extract — ~2000 class-dependent synthetic 1-s wavs through
              ``extract_features(kind="mfcc")`` into a stratified 70/15/15
              npy split;
@@ -38,7 +43,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Launch counts are zeroed just before each path (phase 3, phase 6) and read
 just after it (phase 5, phase 8): each kernel of a path must have launched
-there. The last lines are one JSON object with the kernel records, the
+there, on the FFT route only. The last lines are one JSON object with the kernel records, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -48,6 +53,7 @@ import argparse
 import csv
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -71,6 +77,7 @@ BIRD_SEARCH_EPOCHS = 15  # enough for a genome of the search to pass the
 BIRD_CHECK_CLIPS = 512
 TOL = dict(atol=3e-2, rtol=1e-3)  # the JAX package's Pallas-vs-XLA tolerance
 KERNELS = ("mfcc_fused", "log_mel_fused")
+DENSE_N_FFT = 400  # not a power of two: the kernels' dense route
 # (name, bytes/s, f32 FLOP/s outside the tensor cores): published dense peaks
 PEAKS = {
     "H100 PCIe": (2.0e12, 51e12),
@@ -138,15 +145,49 @@ def synth_kws(rng, n: int):
     return wavs, labels.astype(np.int32)
 
 
+def kernel_function(mangled: str) -> str:
+    """'name<arg>' of a mangled kernel function: the <length><name> part
+    that names a *_kernel, and its integer template argument, if any."""
+    for i in range(len(mangled)):
+        m = re.match(r"(\d+)(\w+?_kernel)(IL[a-z](\d+)E)?", mangled[i:])
+        if m and int(m.group(1)) == len(m.group(2)):
+            return f"{m.group(2)}<{m.group(4)}>" if m.group(4) else m.group(2)
+    return mangled
+
+
+def ptxas_summary(report: str):
+    """(kernel function, registers, spill store bytes, spill load bytes) for
+    each entry function in an ``nvcc -Xptxas -v`` report."""
+    rows, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_function(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
 def phase_build() -> None:
-    from cmoop_audio_processing_torch.frontend.cuda_kernels import build_library
+    from cmoop_audio_processing_torch.frontend.cuda_kernels import (
+        build_library,
+        ptxas_report,
+    )
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
-        paths = list(pool.map(lambda k: build_library(k, verbose=True), KERNELS))
+        reports = list(pool.map(ptxas_report, KERNELS))
     secs = time.perf_counter() - t0
-    for name, path in zip(KERNELS, paths):
-        log(f"[build] {name} -> {os.path.relpath(path, ROOT)}")
+    for name, report in zip(KERNELS, reports):
+        log(f"[build] {name} -> {os.path.relpath(build_library(name), ROOT)}")
+        for fn, regs, st, ld in ptxas_summary(report):
+            log(f"[build]   ptxas {fn}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
     log(f"[build] {len(KERNELS)} kernels in {secs:.1f} s")
 
 
@@ -192,7 +233,7 @@ def frontend_work(cfg, batch: int, n_samples: int, n_out: int,
 
 
 def kernel_record(name, source, replaces, max_err, ms, plain_ms, work,
-                  device_name) -> dict:
+                  device_name, **extra) -> dict:
     flops, nbytes = work
     peak_name, (bw, f32_peak) = card_peaks(device_name)
     t_ops, t_bytes = flops / f32_peak * 1e3, nbytes / bw * 1e3
@@ -202,6 +243,7 @@ def kernel_record(name, source, replaces, max_err, ms, plain_ms, work,
         "source": source,
         "replaces": replaces,
         "launches": None,  # filled from its path's run
+        "dft_route": None,  # likewise
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -210,15 +252,60 @@ def kernel_record(name, source, replaces, max_err, ms, plain_ms, work,
         # no single PyTorch call computes DFT -> power -> mel -> log (->
         # DCT): torch.stft is an FFT and covers only the first stage
         "library_ms": None,
+        **extra,
     }
-    log(f"[kernels] {name}: max |err| {max_err:.3e}; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.3f} ms by "
+    log(f"[kernels] {name}: max |err| {max_err:.3e}; kernel {ms:.4f} ms "
+        f"(FFT route), plain {plain_ms:.3f} ms, cuFFT chain "
+        f"{extra['fft_chain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
         f"{rec['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
         f"{peak_name} peaks)")
     return rec
 
 
+def fft_chain(y, cfg, dct: bool):
+    """The function through PyTorch's cuFFT-backed ``torch.stft``: |.|^2 ->
+    mel -> dB (-> DCT-II), or the log mode and top_db step of ``cfg``. A
+    yardstick the port never calls."""
+    import torch
+
+    from cmoop_audio_processing_torch.frontend import cuda_kernels as ck
+    from cmoop_audio_processing_torch.frontend.features import window
+
+    _, mel_t, *dct_t = (ck._mfcc_operands if dct else ck._log_mel_operands)(
+        cfg, y.device)
+    win = torch.as_tensor(window(cfg), dtype=torch.float32, device=y.device)
+    spec = torch.stft(y, cfg.n_fft, cfg.hop_length, window=win,
+                      center=cfg.center, pad_mode="reflect", return_complex=True)
+    mel = (spec.real ** 2 + spec.imag ** 2).transpose(1, 2) @ mel_t
+    if dct:
+        return (10.0 * torch.log10(torch.clamp(mel, min=1e-10))) @ dct_t[0]
+    if cfg.log == "natural":
+        return torch.log(mel + 1e-6)
+    return ck._top_db(10.0 * torch.log10(torch.clamp(mel, min=1e-10)), cfg)
+
+
+def time_kernel(tag, fn, ref, y, cfg, shape, dct: bool):
+    """fn (a kernel wrapper) against ref (its plain version) and the cuFFT
+    chain on y: (max |err|, kernel ms, plain ms, chain ms). The first call
+    must launch the kernel on the route of cfg.n_fft."""
+    from cmoop_audio_processing_torch.frontend import cuda_kernels as ck
+
+    key = f"{fn.__name__}/{ck.dft_route(cfg.n_fft)}"
+    before = ck.route_counts[key]
+    got = fn(y, cfg)
+    assert ck.route_counts[key] == before + 1, (tag, key, ck.route_counts)
+    assert got.shape == shape, (tag, got.shape)
+    err = check_close(tag, got, ref(y, cfg))
+    check_close(f"{tag} cuFFT chain", fft_chain(y, cfg, dct), ref(y, cfg))
+    del got
+    return (err, cuda_time_ms(lambda: fn(y, cfg), reps=50),
+            cuda_time_ms(lambda: ref(y, cfg), reps=5),
+            cuda_time_ms(lambda: fft_chain(y, cfg, dct), reps=20))
+
+
 def phase_kernels(seed: int, device_name: str) -> dict:
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -229,48 +316,63 @@ def phase_kernels(seed: int, device_name: str) -> dict:
     records = {}
 
     cfg = FrontendConfig(hop_length=KWS_HOP, n_mels=40, n_mfcc=13)
+    dense = dataclasses.replace(cfg, n_fft=DENSE_N_FFT)
     y = torch.as_tensor(synth_clips(rng, 4096, KWS_N_SAMPLES), device="cuda")
-    got = ck.mfcc_fused(y, cfg)
-    assert got.shape == (4096, cfg.n_frames(KWS_N_SAMPLES), 13), got.shape
-    max_err = check_close("mfcc_fused", got, ck.mfcc_fused_reference(y, cfg))
+    assert ck.dft_route(cfg.n_fft) == "fft" and ck.dft_route(dense.n_fft) == "dense"
+    err, ms, plain_ms, chain_ms = time_kernel(
+        "mfcc_fused", ck.mfcc_fused, ck.mfcc_fused_reference, y, cfg,
+        (4096, cfg.n_frames(KWS_N_SAMPLES), 13), dct=True)
+    d_err, d_ms, d_plain, _ = time_kernel(
+        "mfcc_fused (dense route)", ck.mfcc_fused, ck.mfcc_fused_reference, y,
+        dense, (4096, dense.n_frames(KWS_N_SAMPLES), 13), dct=True)
+    log(f"[kernels] mfcc_fused dense route at n_fft {DENSE_N_FFT}: max |err| "
+        f"{d_err:.3e}; kernel {d_ms:.3f} ms, plain {d_plain:.3f} ms")
     records["mfcc_fused"] = kernel_record(
         "mfcc_fused", "cmoop_audio_processing_torch/csrc/mfcc_fused.cu",
-        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:160", max_err,
-        cuda_time_ms(lambda: ck.mfcc_fused(y, cfg), reps=20),
-        cuda_time_ms(lambda: ck.mfcc_fused_reference(y, cfg), reps=5),
+        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:160", err, ms,
+        plain_ms,
         # the DCT-II: n_mels x n_mfcc multiply-adds
         frontend_work(cfg, 4096, KWS_N_SAMPLES, cfg.n_mfcc,
                       2 * cfg.n_mels * cfg.n_mfcc),
-        device_name,
+        device_name, fft_chain_ms=chain_ms,
+        dense_route={"n_fft": DENSE_N_FFT, "max_abs_err": d_err, "ms": d_ms,
+                     "plain_ms": d_plain},
     )
-    del y, got
+    del y
 
-    # the BirdCLEF shape: 512 5-s clips, 256,512 frames; frames of
-    # different clips share the kernel's 64-frame blocks
+    # the BirdCLEF shape: 512 5-s clips, 256,512 frames
     y = torch.as_tensor(synth_clips(rng, BIRD_CHECK_CLIPS, BIRD_N_SAMPLES),
                         device="cuda")
     db = FrontendConfig(log="db", top_db=80.0)
     natural = FrontendConfig(log="natural")
-    n_frames = db.n_frames(BIRD_N_SAMPLES)
-    errs = []
-    for cfg in (db, natural):
-        got = ck.log_mel_fused(y, cfg)
-        assert got.shape == (BIRD_CHECK_CLIPS, n_frames, 40), got.shape
-        errs.append(check_close(f"log_mel_fused ({cfg.log})", got,
-                                ck.log_mel_fused_reference(y, cfg)))
-        del got
-    log(f"[kernels] log_mel_fused max |err|: db+top_db {errs[0]:.3e}, "
-        f"natural {errs[1]:.3e}")
+    dense = dataclasses.replace(db, n_fft=DENSE_N_FFT)
+    shape = (BIRD_CHECK_CLIPS, db.n_frames(BIRD_N_SAMPLES), 40)
+    err, ms, plain_ms, chain_ms = time_kernel(
+        "log_mel_fused (db)", ck.log_mel_fused, ck.log_mel_fused_reference, y,
+        db, shape, dct=False)
+    n_err, n_ms, _, _ = time_kernel(
+        "log_mel_fused (natural)", ck.log_mel_fused,
+        ck.log_mel_fused_reference, y, natural, shape, dct=False)
+    d_err, d_ms, d_plain, _ = time_kernel(
+        "log_mel_fused (dense route)", ck.log_mel_fused,
+        ck.log_mel_fused_reference, y, dense,
+        (BIRD_CHECK_CLIPS, dense.n_frames(BIRD_N_SAMPLES), 40), dct=False)
+    log(f"[kernels] log_mel_fused max |err|: db+top_db {err:.3e}, natural "
+        f"{n_err:.3e} ({n_ms:.4f} ms); dense route at n_fft {DENSE_N_FFT} "
+        f"{d_err:.3e}, kernel {d_ms:.3f} ms, plain {d_plain:.3f} ms")
     records["log_mel_fused"] = kernel_record(
         "log_mel_fused", "cmoop_audio_processing_torch/csrc/log_mel_fused.cu",
-        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:122", max(errs),
-        # the path's mode (dB, top_db 80), the wrapper's top_db step included
-        cuda_time_ms(lambda: ck.log_mel_fused(y, db), reps=20),
-        cuda_time_ms(lambda: ck.log_mel_fused_reference(y, db), reps=5),
+        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:122",
+        max(err, n_err),
+        # the path's mode (dB, top_db 80), the top_db step included
+        ms, plain_ms,
         # top_db: a max, a subtract and a clamp per output
         frontend_work(db, BIRD_CHECK_CLIPS, BIRD_N_SAMPLES, db.n_mels,
                       3 * db.n_mels),
-        device_name,
+        device_name, fft_chain_ms=chain_ms,
+        natural_ms=n_ms,
+        dense_route={"n_fft": DENSE_N_FFT, "max_abs_err": d_err, "ms": d_ms,
+                     "plain_ms": d_plain},
     )
     return records
 
@@ -385,6 +487,8 @@ def phase_search(tag: str, preset: str, device: str, data_dir: str,
     from cmoop_audio_processing_torch.core.config import get_preset
     from cmoop_audio_processing_torch.core.genome import GENE_ORDER
 
+    run_dir = os.path.join(out_dir, preset)
+    shutil.rmtree(run_dir, ignore_errors=True)  # a fresh run, fresh progress log
     t0 = time.perf_counter()
     rc = cli_main([
         "--preset", preset, "--source", "npy", "--data-path", data_dir,
@@ -392,7 +496,6 @@ def phase_search(tag: str, preset: str, device: str, data_dir: str,
         "--epochs", str(epochs), "--out", out_dir,
     ])
     assert rc == 0, rc
-    run_dir = os.path.join(out_dir, preset)
     suffix = get_preset(preset).artifact_suffix
     suffix = f"_{suffix}" if suffix else ""
     with open(os.path.join(run_dir, "all_generations.csv"), newline="") as f:
@@ -493,11 +596,18 @@ def phase_bird_extract(seed: int, device: str, wav_dir: str,
 BIRD_GENOMES = [SMOKE_GENOMES[0], SMOKE_GENOMES[1]]  # widest, narrowest
 
 
-def read_launches(records: dict, names, counts: dict, path: str) -> None:
+def read_launches(records: dict, names, path: str) -> None:
+    """Each kernel's launches in the path's run, which must all have taken
+    the FFT route."""
+    from cmoop_audio_processing_torch.frontend import cuda_kernels as ck
+
     for name in names:
-        records[name]["launches"] = counts[name]
-        if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the {path} path")
+        ran = [r for r in ("fft", "dense") if ck.route_counts[f"{name}/{r}"] > 0]
+        records[name]["launches"] = ck.launch_counts[name]
+        records[name]["dft_route"] = "+".join(ran)
+        if ran != ["fft"]:
+            raise AssertionError(f"kernel {name} on the {path} path: launches "
+                                 f"by route {ck.route_counts}")
 
 
 def main(argv=None) -> int:
@@ -536,7 +646,7 @@ def main(argv=None) -> int:
                 TrainConfig(epochs=4, compute_dtype="bfloat16"), min_acc=0.5)
     phase_search("search", "nsga_penalty", "cuda", data_dir,
                  os.path.join(WORK, "results"), epochs=3, pop=8, gens=2)
-    read_launches(records, ["mfcc_fused"], cuda_kernels.launch_counts, "KWS")
+    read_launches(records, ["mfcc_fused"], "KWS")
 
     bird_dir = os.path.join(WORK, "bird_npy")
     cuda_kernels.reset_launch_counts()
@@ -548,8 +658,7 @@ def main(argv=None) -> int:
     phase_search("bird-search", "sa_nsga_penalty", "cuda", bird_dir,
                  os.path.join(WORK, "results"), epochs=BIRD_SEARCH_EPOCHS,
                  pop=6, gens=2)
-    read_launches(records, ["log_mel_fused"], cuda_kernels.launch_counts,
-                  "BirdCLEF")
+    read_launches(records, ["log_mel_fused"], "BirdCLEF")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -1,31 +1,31 @@
-// The stages the two fused frontend kernels share (mfcc_fused.cu,
-// log_mel_fused.cu): one block's 64 frames -> windowed real DFT -> power
-// -> mel, accumulated in shared memory. Each kernel adds its own epilogue
-// (dB + DCT-II, or the log) on the accumulator this leaves behind.
+// The dense route's stages, shared by the two fused frontend kernels
+// (mfcc_fused.cu, log_mel_fused.cu) for every n_fft that mel_fft.cuh's FFT
+// route does not take (not a power of two from 64 to 2048): one block's 64
+// frames -> windowed real DFT -> power -> mel, accumulated in shared
+// memory. Each kernel adds its own epilogue (dB + DCT-II, or the log) on
+// the accumulator this leaves behind.
 //
-// What bounds it: the function needs per frame a real FFT of n_fft points
-// (~2.5*n*log2(n), 11.5 kFLOP at 512), the power and the mel product over
-// the filter bank's ~490 nonzero weights: ~14 kFLOP against the hop new
-// samples read and the outputs written (~800 bytes), so on an H100 the
-// function is bound by device-memory traffic. This design runs the DFT as
-// a dense GEMM instead, 2*n_fft*2*n_bins (526 kFLOP) per frame, ~38x the
-// FFT's count, and that f32 CUDA-core arithmetic is what limits it; an FFT
-// in the block is the lever for a redesign. The design therefore:
-//   * keeps the (T, 2K) projection and the (T, K) power in registers and
+// What bounds it: the function is bound by device-memory traffic on an
+// H100 (mel_fft.cuh), but this route runs the DFT as a dense GEMM,
+// 2*n_fft*2*n_bins FLOP per frame (~38x an FFT's count at 512), and that
+// f32 CUDA-core arithmetic is what limits it. It is the general route, kept
+// simple:
+//   * the (T, 2K) projection and the (T, K) power stay in registers and
 //     shared memory only: they never reach device memory, which is what
 //     the TPU kernels' fusion bought;
-//   * runs the DFT as a register-tiled f32 GEMM (each thread 4 frames x 4
-//     bins x {re, im} = 32 accumulators), full FFMA with no TF32, because
-//     the librosa match needs full f32 (the TPU kernels used
-//     Precision.HIGHEST for the same reason);
-//   * accumulates mel += power @ M[chunk] per bin chunk, so the power
-//     spectrogram of a chunk is consumed right after it is made;
-//   * gathers its own frames from the waveform, reflecting at the edges
-//     (numpy "reflect", edge not repeated), where the TPU versions had to
-//     frame in XLA because Mosaic forbids unaligned VMEM slices. Frames are
-//     numbered across the whole batch, so frames of different clips share
-//     a block.
-// tensor-core paths (wgmma with 3xTF32 split operands) are left for later.
+//   * the DFT is a register-tiled f32 GEMM (each thread 4 frames x 4 bins x
+//     {re, im} = 32 accumulators), full FFMA with no TF32, because the
+//     librosa match needs full f32 (the TPU kernels used Precision.HIGHEST
+//     for the same reason). Its depth runs in stages of NC samples, padded
+//     past n_fft: rows of w past n_fft load as zeros and frame samples
+//     n >= n_fft as zeros, so any n_fft is taken and no frame is read past
+//     its end;
+//   * mel += power @ M[chunk] per bin chunk, so the power spectrogram of a
+//     chunk is consumed right after it is made;
+//   * frames are gathered from the waveform, reflecting at the edges (numpy
+//     "reflect", edge not repeated), where the TPU versions had to frame in
+//     XLA because Mosaic forbids unaligned VMEM slices. Frames are numbered
+//     across the whole batch, so frames of different clips share a block.
 
 #pragma once
 
@@ -101,7 +101,7 @@ __device__ __forceinline__ float* mel_power_tile(
       for (int i = 0; i < LOADS_F; ++i) {
         const int f = (tid + i * THREADS) / NC;
         float v = 0.f;
-        if (fvalid[i]) {
+        if (fvalid[i] && n0 + nl < n_fft) {
           int j = tstart[i] + n0 + nl;
           if (pad) {  // centred framing: numpy "reflect" (edge not repeated)
             if (j < 0) j = -j;
@@ -113,10 +113,14 @@ __device__ __forceinline__ float* mel_power_tile(
       }
       for (int e = tid; e < NC * KC; e += THREADS) {
         const int n = e / KC, k = e % KC;
-        const bool ok = k0 + k < n_bins;
-        const float* row = w + (long long)(n0 + n) * two_k;
-        wc[e] = ok ? row[k0 + k] : 0.f;
-        ws[e] = ok ? row[n_bins + k0 + k] : 0.f;
+        float c = 0.f, s = 0.f;
+        if (k0 + k < n_bins && n0 + n < n_fft) {
+          const float* row = w + (long long)(n0 + n) * two_k;
+          c = row[k0 + k];
+          s = row[n_bins + k0 + k];
+        }
+        wc[e] = c;
+        ws[e] = s;
       }
       __syncthreads();
 #pragma unroll 8

@@ -6,11 +6,17 @@
   csrc/mfcc_fused.cu.
 * ``log_mel_fused`` replaces pallas_kernels.py::log_mel_fused: the same
   chain up to the log (natural or dB) in one kernel, csrc/log_mel_fused.cu,
-  then the per-sample ``top_db`` step as torch ops, as the JAX wrapper ran
-  it in XLA after its Pallas call.
+  then the per-sample ``top_db`` step.
 
-Both share their frame gather, DFT, power and mel stages
-(csrc/mel_tile.cuh).
+Each kernel has two routes, chosen by ``dft_route(cfg.n_fft)``:
+
+* ``"fft"`` — n_fft a power of two from 64 to 2048: a packed real FFT in
+  each warp, a sparse mel product over the filter bank's CSR form, frames
+  of one clip per block (csrc/mel_fft.cuh). ``log_mel_fused``'s ``top_db``
+  step is a per-clip atomic max in the kernel and one in-place pass after
+  it, in the same .cu;
+* ``"dense"`` — every other n_fft: a dense-GEMM DFT (csrc/mel_tile.cuh),
+  with ``top_db`` as torch ops after it, as the JAX wrapper ran it in XLA.
 
 The kernels are compiled with nvcc for sm_90a into build/kernels/ at first
 use, from the sources in this checkout, and bound through ctypes (plain C
@@ -20,8 +26,9 @@ built or loaded when this module is imported.
 On a CPU tensor each wrapper computes its ``*_reference``, the plain
 PyTorch version of the kernel's arithmetic (same reflected frame gather,
 same GEMM chain); on a CUDA tensor it launches the kernel or raises.
-``launch_counts`` counts kernel launches, so a run can show that its main
-path went through the kernel.
+``launch_counts`` counts kernel launches and ``route_counts`` the same
+launches by route, so a run can show that its main path went through the
+kernel, and on which route.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .features import FrontendConfig, dct_matrix, dft_matrices, mel_matrix
+from .features import FrontendConfig, dct_matrix, dft_matrices, mel_matrix, window
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -48,14 +55,30 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-_DFT_DEPTH_TILE = 32  # csrc/mel_tile.cuh NC: n_fft must be a multiple
+FFT_N_FFT = (64, 2048)  # the n_fft range the FFT route is built for
 
 launch_counts: Dict[str, int] = {"mfcc_fused": 0, "log_mel_fused": 0}
+route_counts: Dict[str, int] = {
+    f"{name}/{route}": 0 for name in launch_counts for route in ("fft", "dense")
+}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, route: str) -> None:
+    launch_counts[name] += 1
+    route_counts[f"{name}/{route}"] += 1
+
+
+def dft_route(n_fft: int) -> str:
+    """The kernels' route for ``n_fft``: "fft" for a power of two from 64
+    to 2048 (csrc/mel_fft.cuh), "dense" for any other (csrc/mel_tile.cuh)."""
+    lo, hi = FFT_N_FFT
+    return "fft" if lo <= n_fft <= hi and n_fft & (n_fft - 1) == 0 else "dense"
 
 
 def _nvcc() -> str:
@@ -83,50 +106,66 @@ def source_digest(name: str) -> str:
     return digest.hexdigest()[:12]
 
 
-def build_library(name: str, verbose: bool = False) -> str:
-    """Compile csrc/<name>.cu into build/kernels/lib<name>_<hash>.so and
-    return the path; an edited kernel or header gets a new ``source_digest``
-    and is rebuilt. ``verbose`` adds ``-Xptxas -v`` and prints the
-    compiler's report."""
+def _compile(name: str, extra=()) -> tuple:
+    """nvcc csrc/<name>.cu into build/kernels/lib<name>_<hash>.so; returns
+    (path, the compiler's messages)."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(name)}.so")
-    if os.path.exists(out) and not verbose:
-        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, src],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) for {src}:\n{proc.stderr}"
         )
-    if verbose:
-        print(proc.stderr, end="")
     os.replace(tmp, out)
-    return out
+    return out, proc.stderr
 
 
-@functools.lru_cache(maxsize=None)
-def _mfcc_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library("mfcc_fused"))
-    lib.mfcc_fused_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    )
-    lib.mfcc_fused_launch.restype = ctypes.c_int
+def build_library(name: str) -> str:
+    """Compile csrc/<name>.cu into build/kernels/lib<name>_<hash>.so unless
+    it is there, and return the path; an edited kernel or header gets a new
+    ``source_digest`` and is rebuilt."""
+    out = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(name)}.so")
+    return out if os.path.exists(out) else _compile(name)[0]
+
+
+def ptxas_report(name: str) -> str:
+    """Build csrc/<name>.cu (as ``build_library``) with ``-Xptxas -v`` and
+    return ptxas's report: each kernel function's registers and spills."""
+    return _compile(name, ("-Xptxas", "-v"))[1]
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's C entry points and their argument types (all return int)
+_ENTRY_POINTS = {
+    "mfcc_fused": {
+        "mfcc_fused_launch": [_P] * 5 + [_I] * 9 + [_P],
+        "mfcc_fft_launch": [_P] * 6 + [_I] * 9 + [_P],
+    },
+    "log_mel_fused": {
+        "log_mel_fused_launch": [_P] * 4 + [_I] * 9 + [_P],
+        "log_mel_fft_launch": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
+    },
+}
+
+
+def load_library(name: str, path: str) -> ctypes.CDLL:
+    """The built library of kernel ``name`` at ``path``, its entry points
+    typed."""
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in _ENTRY_POINTS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _log_mel_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library("log_mel_fused"))
-    lib.log_mel_fused_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    )
-    lib.log_mel_fused_launch.restype = ctypes.c_int
-    return lib
+def _library(name: str) -> ctypes.CDLL:
+    return load_library(name, build_library(name))
 
 
 def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -145,6 +184,59 @@ def _log_mel_operands(cfg: FrontendConfig, device: torch.device):
 def _mfcc_operands(cfg: FrontendConfig, device: torch.device):
     """The log-mel operands plus D^T (n_mels, n_mfcc)."""
     return (*_log_mel_operands(cfg, device), _put(dct_matrix(cfg).T, device))
+
+
+def fft_tables(cfg: FrontendConfig) -> np.ndarray:
+    """The FFT route's constant table, float32, computed in float64, with
+    N = n_fft / 2 and W_M = exp(-2*pi*i/M) (csrc/mel_fft.cuh table_floats):
+    window (n_fft) | W_N^j, j < N | W_n_fft^k, k <= N/2 | W_N^(lane *
+    bitrev(r)) at [r][lane] for the N/32 registers r and 32 lanes; the last
+    three as (re, im) pairs."""
+    half = cfg.n_fft // 2
+    regs = half // 32
+    bits = regs.bit_length() - 1
+    rev = [int(format(r, f"0{bits}b")[::-1], 2) if bits else 0
+           for r in range(regs)]
+
+    def pairs(turns):
+        angles = 2.0 * np.pi * np.asarray(turns, np.float64).ravel()
+        return np.stack([np.cos(angles), -np.sin(angles)], axis=1).ravel()
+
+    return np.concatenate([
+        window(cfg),
+        pairs(np.arange(half) / half),
+        pairs(np.arange(half // 2 + 1) / cfg.n_fft),
+        pairs(np.outer(rev, np.arange(32)) / half),
+    ]).astype(np.float32)
+
+
+def mel_csr(cfg: FrontendConfig):
+    """The filter bank ``mel_matrix(cfg)`` (n_mels, n_bins) in the FFT
+    route's sparse form: ``csr`` (4, n_mels) int32 holds each band's first
+    bin, bin count and offset into ``weights`` (the float32 values of the
+    band's bins from its first nonzero to its last; an empty band has count
+    0), then the bands longest first, the order in which the kernel's warps
+    take them."""
+    m = mel_matrix(cfg)
+    csr = np.zeros((4, cfg.n_mels), np.int32)
+    bands, offset = [], 0
+    for i, row in enumerate(m):
+        nz = np.flatnonzero(row)
+        if len(nz):
+            bands.append(row[nz[0]:nz[-1] + 1])
+            csr[:3, i] = nz[0], len(bands[-1]), offset
+            offset += len(bands[-1])
+    csr[3] = np.argsort(-csr[1], kind="stable")
+    return csr, np.concatenate(bands or [np.zeros(0, np.float32)])
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_operands(cfg: FrontendConfig, device: torch.device):
+    """Device copies of the FFT route's constants: the table, the CSR mel
+    bank (index, weights) and D^T (n_mels, n_mfcc)."""
+    csr, weights = mel_csr(cfg)
+    return (_put(fft_tables(cfg), device), _put(csr, device),
+            _put(weights, device), _put(dct_matrix(cfg).T, device))
 
 
 def _reflect_frames(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
@@ -182,8 +274,6 @@ def _check_input(name: str, y: torch.Tensor, cfg: FrontendConfig) -> None:
             f"{name} takes a contiguous float32 (batch, samples) tensor; "
             f"got {y.dtype} of shape {tuple(y.shape)}"
         )
-    if cfg.n_fft % _DFT_DEPTH_TILE:
-        raise ValueError(f"n_fft must be a multiple of {_DFT_DEPTH_TILE}")
     if cfg.center and y.shape[1] <= cfg.n_fft // 2:
         raise ValueError("centred framing needs more than n_fft/2 samples")
     if not cfg.center and y.shape[1] < cfg.n_fft:
@@ -192,7 +282,8 @@ def _check_input(name: str, y: torch.Tensor, cfg: FrontendConfig) -> None:
 
 def mfcc_fused(y: torch.Tensor, cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
     """(batch, samples) -> (batch, n_frames, n_mfcc): the fused MFCC chain.
-    CUDA tensor: the kernel. CPU tensor: ``mfcc_fused_reference``."""
+    CUDA tensor: the kernel of ``dft_route(cfg.n_fft)``. CPU tensor:
+    ``mfcc_fused_reference``."""
     _check_input("mfcc_fused", y, cfg)
     if cfg.n_mfcc > cfg.n_mels:
         raise ValueError("n_mfcc must not exceed n_mels")
@@ -200,21 +291,37 @@ def mfcc_fused(y: torch.Tensor, cfg: FrontendConfig = FrontendConfig()) -> torch
         return mfcc_fused_reference(y, cfg)
     if y.device.type != "cuda":
         raise ValueError(f"mfcc_fused: unsupported device {y.device}")
-    lib = _mfcc_library()
-    w, mel_t, dct_t = _mfcc_operands(cfg, y.device)
+    return _mfcc_launch(_library("mfcc_fused"), y, cfg)
+
+
+def _mfcc_launch(lib: ctypes.CDLL, y: torch.Tensor,
+                 cfg: FrontendConfig) -> torch.Tensor:
+    """``mfcc_fused`` on a checked CUDA tensor, through ``lib``."""
     batch, n_samples = y.shape
     n_frames = cfg.n_frames(n_samples)
     out = torch.empty((batch * n_frames, cfg.n_mfcc), dtype=torch.float32,
                       device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = lib.mfcc_fused_launch(
-        y.data_ptr(), w.data_ptr(), mel_t.data_ptr(), dct_t.data_ptr(),
-        out.data_ptr(), batch, n_samples, n_frames, cfg.n_fft, cfg.n_bins,
-        cfg.hop_length, int(cfg.center), cfg.n_mels, cfg.n_mfcc, stream,
-    )
+    route = dft_route(cfg.n_fft)
+    if route == "fft":
+        tables, csr, weights, dct_t = _fft_operands(cfg, y.device)
+        err = lib.mfcc_fft_launch(
+            y.data_ptr(), tables.data_ptr(), csr.data_ptr(), weights.data_ptr(),
+            dct_t.data_ptr(), out.data_ptr(), batch, n_samples, n_frames,
+            cfg.n_fft, cfg.hop_length, int(cfg.center), cfg.n_mels,
+            weights.numel(), cfg.n_mfcc, stream,
+        )
+    else:
+        w, mel_t, dct_t = _mfcc_operands(cfg, y.device)
+        err = lib.mfcc_fused_launch(
+            y.data_ptr(), w.data_ptr(), mel_t.data_ptr(), dct_t.data_ptr(),
+            out.data_ptr(), batch, n_samples, n_frames, cfg.n_fft, cfg.n_bins,
+            cfg.hop_length, int(cfg.center), cfg.n_mels, cfg.n_mfcc, stream,
+        )
     if err != 0:
-        raise RuntimeError(f"mfcc_fused kernel launch failed: cudaError {err}")
-    launch_counts["mfcc_fused"] += 1
+        raise RuntimeError(
+            f"mfcc_fused ({route} route) kernel launch failed: cudaError {err}")
+    _count("mfcc_fused", route)
     return out.view(batch, n_frames, cfg.n_mfcc)
 
 
@@ -248,8 +355,8 @@ def log_mel_fused_reference(
 
 def log_mel_fused(y: torch.Tensor, cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
     """(batch, samples) -> (batch, n_frames, n_mels): the fused log-mel
-    chain. CUDA tensor: the kernel, then the ``top_db`` step. CPU tensor:
-    ``log_mel_fused_reference``."""
+    chain and its ``top_db`` step. CUDA tensor: the kernel of
+    ``dft_route(cfg.n_fft)``. CPU tensor: ``log_mel_fused_reference``."""
     _check_input("log_mel_fused", y, cfg)
     if cfg.log not in ("db", "natural"):
         raise ValueError(f"unknown log mode {cfg.log!r}; use 'db' or 'natural'")
@@ -257,19 +364,40 @@ def log_mel_fused(y: torch.Tensor, cfg: FrontendConfig = FrontendConfig()) -> to
         return log_mel_fused_reference(y, cfg)
     if y.device.type != "cuda":
         raise ValueError(f"log_mel_fused: unsupported device {y.device}")
-    lib = _log_mel_library()
-    w, mel_t = _log_mel_operands(cfg, y.device)
+    return _log_mel_launch(_library("log_mel_fused"), y, cfg)
+
+
+def _log_mel_launch(lib: ctypes.CDLL, y: torch.Tensor,
+                    cfg: FrontendConfig) -> torch.Tensor:
+    """``log_mel_fused`` on a checked CUDA tensor, through ``lib``."""
     batch, n_samples = y.shape
     n_frames = cfg.n_frames(n_samples)
     out = torch.empty((batch * n_frames, cfg.n_mels), dtype=torch.float32,
                       device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = lib.log_mel_fused_launch(
-        y.data_ptr(), w.data_ptr(), mel_t.data_ptr(), out.data_ptr(), batch,
-        n_samples, n_frames, cfg.n_fft, cfg.n_bins, cfg.hop_length,
-        int(cfg.center), cfg.n_mels, int(cfg.log == "natural"), stream,
-    )
+    route = dft_route(cfg.n_fft)
+    if route == "fft":
+        tables, csr, weights, _ = _fft_operands(cfg, y.device)
+        top_db = cfg.log == "db" and cfg.top_db is not None
+        clip_max = torch.empty(batch if top_db else 0, dtype=torch.int32,
+                               device=y.device)
+        err = lib.log_mel_fft_launch(
+            y.data_ptr(), tables.data_ptr(), csr.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), clip_max.data_ptr(), batch, n_samples, n_frames,
+            cfg.n_fft, cfg.hop_length, int(cfg.center), cfg.n_mels,
+            weights.numel(), 0 if cfg.log == "natural" else 1 + int(top_db),
+            -cfg.top_db if top_db else 0.0, stream,
+        )
+    else:
+        w, mel_t = _log_mel_operands(cfg, y.device)
+        err = lib.log_mel_fused_launch(
+            y.data_ptr(), w.data_ptr(), mel_t.data_ptr(), out.data_ptr(), batch,
+            n_samples, n_frames, cfg.n_fft, cfg.n_bins, cfg.hop_length,
+            int(cfg.center), cfg.n_mels, int(cfg.log == "natural"), stream,
+        )
     if err != 0:
-        raise RuntimeError(f"log_mel_fused kernel launch failed: cudaError {err}")
-    launch_counts["log_mel_fused"] += 1
-    return _top_db(out.view(batch, n_frames, cfg.n_mels), cfg)
+        raise RuntimeError(
+            f"log_mel_fused ({route} route) kernel launch failed: cudaError {err}")
+    _count("log_mel_fused", route)
+    out = out.view(batch, n_frames, cfg.n_mels)
+    return out if route == "fft" else _top_db(out, cfg)

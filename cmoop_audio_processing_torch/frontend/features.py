@@ -56,8 +56,18 @@ class FrontendConfig:
         return self.n_fft // 2 + 1
 
     def n_frames(self, n_samples: int) -> int:
-        padded = n_samples + (self.n_fft if self.center else 0)
+        # centred framing pads n_fft // 2 samples on each side: for an odd
+        # n_fft that is n_fft - 1 in all, as the JAX package frames
+        padded = n_samples + (2 * (self.n_fft // 2) if self.center else 0)
         return 1 + (padded - self.n_fft) // self.hop_length
+
+
+def window(cfg: FrontendConfig) -> np.ndarray:
+    """(n_fft,) float64 periodic Hann window of ``win_length`` samples,
+    zero-padded to n_fft on both sides."""
+    win_length = cfg.win_length or cfg.n_fft
+    pad = cfg.n_fft - win_length
+    return np.pad(ref.hann_periodic(win_length), (pad // 2, pad - pad // 2))
 
 
 def dft_matrices(cfg: FrontendConfig) -> np.ndarray:
@@ -66,12 +76,9 @@ def dft_matrices(cfg: FrontendConfig) -> np.ndarray:
     n = np.arange(cfg.n_fft)[:, None]
     k = np.arange(cfg.n_bins)[None, :]
     ang = 2.0 * np.pi * n * k / cfg.n_fft
-    win_length = cfg.win_length or cfg.n_fft
-    window = ref.hann_periodic(win_length)
-    pad = cfg.n_fft - win_length
-    window = np.pad(window, (pad // 2, pad - pad // 2))
-    cos = np.cos(ang) * window[:, None]
-    sin = -np.sin(ang) * window[:, None]
+    win = window(cfg)
+    cos = np.cos(ang) * win[:, None]
+    sin = -np.sin(ang) * win[:, None]
     return np.concatenate([cos, sin], axis=1).astype(np.float32)
 
 

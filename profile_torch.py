@@ -1,6 +1,7 @@
 """Where the time of the PyTorch port's paths goes, on one CUDA card.
 
     python3 profile_torch.py [--path kws|bird] [--seed N] [--epochs E]
+                             [--extract-only]
 
 ``--path kws`` (default) builds chip_smoke.py's KWS workload (2000
 class-dependent synthetic 1-s clips, 10 classes, through
@@ -18,6 +19,8 @@ stratified, as the extraction CLI does. Then it runs these stages under
 * gp_fit  — BirdCLEF only: one ``SurrogateManager.update`` of
             ``sa_nsga_penalty`` (4 targets x 11 restarts x 200 Adam steps)
             on a 64-genome archive, after one untimed update.
+
+``--extract-only`` stops after the extract stage.
 
 For each stage it prints the host wall time without and with the profiler,
 the device busy time (sum of the kernels' device times), the device idle
@@ -90,6 +93,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--epochs", type=int, default=4)
     parser.add_argument("--path", choices=["kws", "bird"], default="kws")
+    parser.add_argument("--extract-only", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_torch: no CUDA device (torch.cuda.is_available() is False)")
@@ -139,6 +143,10 @@ def main(argv=None) -> int:
     rec_x["frames_per_s"] = (feats.shape[0] * feats.shape[1]
                              / rec_x["wall_unprofiled_s"])
     report("extract", rec_x)
+    out = {"device": name, "power": smi, "path": args.path, "extract": rec_x}
+    if args.extract_only:
+        print(json.dumps(out))
+        return 0
 
     tr, va, te = three_way_split(labels, 0.3, 0.5, args.seed)
     data = add_channel_axis(standardize_splits({
@@ -159,8 +167,7 @@ def main(argv=None) -> int:
     print(f"[train] {rec_t['populations']} populations, {rec_t['steps']} "
           f"optimizer steps, {rec_t['lane_epochs']} lane-epochs; "
           f"accs {[round(f[0], 4) for f in fits]}")
-    out = {"device": name, "power": smi, "path": args.path, "extract": rec_x,
-           "train": rec_t}
+    out["train"] = rec_t
     if args.path == "bird":
         out["gp_fit"] = profile_gp_fit(args.seed)
     print(json.dumps(out))

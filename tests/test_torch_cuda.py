@@ -39,20 +39,39 @@ def _clips(n, n_samples, seed=0):
     return y.astype(np.float32)
 
 
+def _launch(fn, name, y, cfg):
+    """fn(y, cfg), asserting one launch of kernel `name` on its route."""
+    key = f"{name}/{tk.dft_route(cfg.n_fft)}"
+    before = tk.launch_counts[name], tk.route_counts[key]
+    got = fn(y, cfg)
+    assert (tk.launch_counts[name], tk.route_counts[key]) == (before[0] + 1,
+                                                              before[1] + 1)
+    return got
+
+
 @pytest.mark.parametrize("n,n_samples,cfg", [
     (64, 16000, KWS),
     (3, 80000, tf.FrontendConfig()),
     (5, 16000, dataclasses.replace(KWS, center=False)),
     (2, 700, KWS),
-], ids=["kws_64x16000", "birdclef_3x80000", "uncentred", "short_clip"])
+    (4, 16000, dataclasses.replace(KWS, n_fft=256)),
+    (4, 16000, dataclasses.replace(KWS, n_fft=1024)),
+    (3, 16000, dataclasses.replace(KWS, n_fft=64, n_mels=20)),
+    (3, 16000, dataclasses.replace(KWS, n_fft=2048, n_mels=64)),
+    (3, 16000, dataclasses.replace(KWS, n_fft=400)),
+    (3, 16000, dataclasses.replace(KWS, n_fft=401)),
+    (3, 16000, dataclasses.replace(KWS, win_length=400)),
+    (3, 16000, dataclasses.replace(KWS, hop_length=161)),
+    (5, 12345, tf.FrontendConfig(n_mfcc=13)),
+], ids=["kws_64x16000", "birdclef_3x80000", "uncentred", "short_clip",
+        "fft_256", "fft_1024", "fft_64", "fft_2048", "dense_400", "dense_401",
+        "win_length_400", "fft_odd_hop_161", "ragged_5x12345"])
 def test_mfcc_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
     """atol 3e-2 / rtol 1e-3: the JAX package's Pallas-vs-XLA tolerance
     (tests/test_frontend.py); both sides are full f32 and differ only in
-    summation order."""
+    the order of their sums (an FFT on one side, a GEMM on the other)."""
     y = torch.as_tensor(_clips(n, n_samples), device=cuda)
-    before = tk.launch_counts["mfcc_fused"]
-    got = tk.mfcc_fused(y, cfg)
-    assert tk.launch_counts["mfcc_fused"] == before + 1
+    got = _launch(tk.mfcc_fused, "mfcc_fused", y, cfg)
     want = tk.mfcc_fused_reference(y, cfg)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (n, cfg.n_frames(n_samples), cfg.n_mfcc)
@@ -65,19 +84,75 @@ def test_mfcc_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
     (5, 16000, tf.FrontendConfig(center=False)),
     (2, 700, tf.FrontendConfig()),
     (7, 16000, tf.FrontendConfig(top_db=None)),
+    (4, 16000, tf.FrontendConfig(n_fft=256)),
+    (4, 16000, tf.FrontendConfig(n_fft=1024, log="natural")),
+    (3, 16000, tf.FrontendConfig(n_fft=64, n_mels=20)),
+    (3, 16000, tf.FrontendConfig(n_fft=2048, n_mels=64)),
+    (3, 16000, tf.FrontendConfig(n_fft=400)),
+    (3, 16000, tf.FrontendConfig(n_fft=400, log="natural")),
+    (3, 16000, tf.FrontendConfig(n_fft=401)),
+    (3, 16000, tf.FrontendConfig(win_length=400)),
+    (3, 16000, tf.FrontendConfig(hop_length=161)),
+    (3, 16000, tf.FrontendConfig(n_mels=39)),
+    (5, 12345, tf.FrontendConfig(top_db=60.0)),
 ], ids=["birdclef_3x80000_db_top_db", "birdclef_3x80000_natural", "uncentred",
-        "short_clip", "shared_blocks_7x16000_raw_db"])
+        "short_clip", "shared_blocks_7x16000_raw_db", "fft_256", "fft_1024",
+        "fft_64", "fft_2048", "dense_400", "dense_400_natural", "dense_401",
+        "win_length_400", "fft_odd_hop_161", "odd_clip_rows_39_mels",
+        "ragged_5x12345_top_db_60"])
 def test_log_mel_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
-    """atol 3e-2 / rtol 1e-3, as for mfcc_fused. 7 clips of 101 frames put
-    frames of two clips in most 64-frame blocks."""
+    """atol 3e-2 / rtol 1e-3, as for mfcc_fused. On the dense route 7 clips
+    of 101 frames put frames of two clips in most 64-frame blocks; on the
+    FFT route 12345 samples (78 frames at hop 160) leave a ragged last block
+    in every clip, an odd hop takes the unaligned frame loads, and 101
+    frames of 39 mels (a clip's output not a multiple of 4 floats) take the
+    scalar top_db pass."""
     y = torch.as_tensor(_clips(n, n_samples), device=cuda)
-    before = tk.launch_counts["log_mel_fused"]
-    got = tk.log_mel_fused(y, cfg)
-    assert tk.launch_counts["log_mel_fused"] == before + 1
+    got = _launch(tk.log_mel_fused, "log_mel_fused", y, cfg)
     want = tk.log_mel_fused_reference(y, cfg)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (n, cfg.n_frames(n_samples), cfg.n_mels)
     torch.testing.assert_close(got, want, atol=3e-2, rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["mfcc_fused", "log_mel_fused"])
+@pytest.mark.parametrize("n_fft", [512, 400], ids=["fft", "dense"])
+def test_two_launches_give_identical_bits(cuda, name, n_fft):
+    y = torch.as_tensor(_clips(6, 80000, seed=4), device=cuda)
+    cfg = tf.FrontendConfig(n_fft=n_fft)
+    fn = getattr(tk, name)
+    first, second = fn(y, cfg), fn(y, cfg)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(512, 40), (400, 40), (512, 39)],
+                         ids=["fft", "dense", "fft_scalar_pass"])
+def test_log_mel_top_db_is_the_wrappers_rule_on_the_raw_db(cuda, n_fft, n_mels):
+    """The FFT route's in-kernel top_db step (atomic clip max, then one
+    in-place pass, by float4 or, at 501 x 39 floats a clip, by float) gives
+    _top_db of the kernel's own raw dB, bit for bit."""
+    y = torch.as_tensor(_clips(5, 80000, seed=6), device=cuda)
+    cfg = tf.FrontendConfig(n_fft=n_fft, n_mels=n_mels, top_db=80.0)
+    raw = tk.log_mel_fused(y, dataclasses.replace(cfg, top_db=None))
+    got = tk.log_mel_fused(y, cfg)
+    assert torch.equal(got, tk._top_db(raw, cfg))
+    assert float(got.amax()) == 0.0 and float(got.amin()) >= -80.0
+
+
+def test_every_n_fft_of_the_fft_route_launches(cuda):
+    """dft_route's range (FFT_N_FFT) and the sizes the kernels are built
+    for (mel_fft.cuh with_log2p) agree: each power of two in the range
+    launches on the FFT route and matches the plain version."""
+    y = torch.as_tensor(_clips(2, 8000, seed=3), device=cuda)
+    lo, hi = tk.FFT_N_FFT
+    n_fft = lo
+    while n_fft <= hi:
+        cfg = tf.FrontendConfig(n_fft=n_fft, n_mels=20, n_mfcc=13)
+        for name, ref in (("mfcc_fused", tk.mfcc_fused_reference),
+                          ("log_mel_fused", tk.log_mel_fused_reference)):
+            got = _launch(getattr(tk, name), name, y, cfg)
+            torch.testing.assert_close(got, ref(y, cfg), atol=3e-2, rtol=1e-3)
+        n_fft *= 2
 
 
 def test_extract_features_on_cuda_goes_through_the_kernel(cuda):
@@ -92,6 +167,22 @@ def test_extract_features_on_cuda_goes_through_the_kernel(cuda):
     assert tk.launch_counts["log_mel_fused"] == before + 1
     want = tf.extract_features(ys, KWS, kind="log_mel", device="cpu")
     np.testing.assert_allclose(got, want, atol=3e-2, rtol=1e-3)
+
+
+def test_extract_features_at_n_fft_400_takes_the_dense_route(cuda):
+    """An n_fft the FFT route does not take: extraction on the card goes
+    through each kernel's dense route and matches the CPU (the plain
+    versions, held against JAX by tests/test_torch_fft_operands.py)."""
+    ys = _clips(3, 16000, seed=2)
+    for kind, name in (("mfcc", "mfcc_fused"), ("log_mel", "log_mel_fused")):
+        cfg = dataclasses.replace(KWS, n_fft=400)
+        before = tk.route_counts[f"{name}/dense"]
+        got = tf.extract_features(ys, cfg, kind=kind, device="cuda")
+        assert tk.route_counts[f"{name}/dense"] == before + 1
+        want = tf.extract_features(ys, cfg, kind=kind, device="cpu")
+        assert got.shape == want.shape == (3, cfg.n_frames(16000),
+                                           13 if kind == "mfcc" else 40)
+        np.testing.assert_allclose(got, want, atol=3e-2, rtol=1e-3)
 
 
 def test_mfcc_fused_rejects_float64_on_cuda(cuda):

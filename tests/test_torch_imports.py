@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of it, and not chip_smoke.py,
-imports JAX, optax or the JAX package; pandas, sklearn and h5py are
+"""The PyTorch port stands alone: no module of it, and none of the scripts
+that run it on the card (chip_smoke.py, profile_torch.py,
+kernel_variants.py), imports JAX, optax or the JAX package; pandas, sklearn and h5py are
 imported only inside functions off the main path, so the main path runs on
 a machine that has none of them."""
 
@@ -18,7 +19,8 @@ LAZY_ONLY = {"pandas", "sklearn", "h5py"}
 
 
 def _sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, f) for f in
+             ("chip_smoke.py", "profile_torch.py", "kernel_variants.py")]
     for d, _, files in os.walk(PORT):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(paths)
