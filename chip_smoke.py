@@ -1,6 +1,10 @@
-"""GPU smoke run of the PyTorch port's two paths on one CUDA card:
+"""GPU smoke run of the PyTorch port's paths on one CUDA card:
 
 * KWS: 1-s wavs -> fused MFCC kernel -> population trainer -> NSGA-II front;
+* KWS-MOBO: the same MFCC split -> MOBO search (one-lane trainings, GP fits
+  on the card) -> the front's first genome retrained and exported -> the
+  validation wavs through the fused MFCC kernel into the exported model ->
+  the NSGA-II and MOBO fronts compared;
 * BirdCLEF: 5-s wav files -> extraction CLI (fused log-mel kernel) -> 501x40
   npy split -> template-B population trainer -> GP-surrogate SA-NSGA-II
   (``sa_nsga_penalty``) front.
@@ -31,20 +35,41 @@ Phases (any failure exits non-zero; nothing is caught):
 5. search  — the CLI, ``--preset nsga_penalty --source npy --device cuda``;
              its per-generation and final CSVs must carry the reference
              schema, and its front must not be empty;
-6. bird-extract — 11 classes x 120 synthetic 5-s bird calls written as
+6. mobo-search — the CLI, ``--preset mobo_penalty`` on phase 3's split:
+             15 initial genomes + 4 acquisitions, each a one-lane training,
+             and 4 GP refits on the card; ``mobo_pareto.csv`` with the
+             reference columns (CV included) and at least one feasible
+             genome, ``mobo_iterations.xlsx`` with the 19 archive rows; the
+             seconds per true evaluation and per GP fit from the run's stage
+             timers;
+7. deploy  — ``cli/train_final.py`` on the MOBO front's first row, twice:
+             the two ``model.npz`` must be the same bytes; ``load_model`` +
+             ``predict`` on the card over the split's validation set must
+             give the logits of the weights ``train_single`` trains in the
+             same process bit for bit, and the validation loss (1%) and
+             accuracy (one sample) that ``meta.json`` reports; the
+             validation wavs, extracted again through ``mfcc_fused`` and
+             standardized with the training split's scaler, must give the
+             split's features and logits bit for bit;
+8. compare — ``cli/compare.py`` on phase 5's and phase 6's fronts: each
+             front's hypervolume finite and above 0;
+9. bird-extract — 11 classes x 120 synthetic 5-s bird calls written as
              16-bit wavs, then ``cli/extract_features.py --kind log_mel
              --duration 5 --layout npy --device cuda``; (n, 501, 40) rows,
              the first against the float64 oracle;
-7. bird-train — template B at 501x40 in bf16, the widest and the narrowest
+10. bird-train — template B at 501x40 in bf16, the widest and the narrowest
              genome, twice: bit-for-bit repeatable fitness; peak memory;
-8. bird-search — the CLI, ``--preset sa_nsga_penalty --source npy --device
+11. bird-search — the CLI, ``--preset sa_nsga_penalty --source npy --device
              cuda``: GP fits on the card; the reference's surrogate
              artifacts, with a front of at least one feasible genome.
 
-Launch counts are zeroed just before each path (phase 3, phase 6) and read
-just after it (phase 5, phase 8): each kernel of a path must have launched
-there, on the FFT route only. The last lines are one JSON object with the kernel records, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before each path (phase 3, phase 6, phase 9)
+and read just after it (phase 5, phase 8, phase 11): each kernel of a path
+must have launched there, on the FFT route only. A kernel record's
+``launches`` is its count on the first path that runs it, and
+``path_launches`` holds its count on each path. The last lines are one
+JSON object with the kernel records, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,6 +100,8 @@ BIRD_SEARCH_EPOCHS = 15  # enough for a genome of the search to pass the
 # preset's constraints (accuracy >= 0.75, FPR <= 0.09), so that its front
 # is not empty
 BIRD_CHECK_CLIPS = 512
+MOBO_ITERS = 4  # acquisitions after the preset's 15 initial genomes
+MOBO_EPOCHS = 3
 TOL = dict(atol=3e-2, rtol=1e-3)  # the JAX package's Pallas-vs-XLA tolerance
 KERNELS = ("mfcc_fused", "log_mel_fused")
 DENSE_N_FFT = 400  # not a power of two: the kernels' dense route
@@ -377,7 +404,8 @@ def phase_kernels(seed: int, device_name: str) -> dict:
     return records
 
 
-def phase_extract(seed: int, device: str, n_wavs: int, data_dir: str) -> None:
+def phase_extract(seed: int, device: str, n_wavs: int, data_dir: str):
+    """The KWS split, extracted on ``device``; returns the validation wavs."""
     import numpy as np
 
     from cmoop_audio_processing_torch.data.loaders import (
@@ -417,6 +445,7 @@ def phase_extract(seed: int, device: str, n_wavs: int, data_dir: str) -> None:
     }, data_dir)
     log(f"[extract] {n_wavs} wavs -> {feats.shape} MFCC in {secs:.2f} s; "
         f"split {len(tr)}/{len(va)}/{len(te)} -> {os.path.relpath(data_dir, ROOT)}")
+    return wavs[va]
 
 
 SMOKE_GENOMES = [
@@ -478,6 +507,17 @@ def phase_train(tag: str, device: str, data_dir: str, genomes, cfg,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def stage_seconds(run_dir: str) -> dict:
+    """{stage: [seconds, ...]} from a run's progress.jsonl stage timers."""
+    stages: dict = {}
+    with open(os.path.join(run_dir, "progress.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["event"] == "stage":
+                stages.setdefault(rec["stage"], []).append(rec["seconds"])
+    return stages
+
+
 def phase_search(tag: str, preset: str, device: str, data_dir: str,
                  out_dir: str, epochs: int, pop: int, gens: int) -> None:
     """The CLI on ``preset``: its per-generation CSV and its final front,
@@ -509,17 +549,160 @@ def phase_search(tag: str, preset: str, device: str, data_dir: str,
     assert len(front) > 1, f"{preset}: no feasible genome in the final front"
     assert front[0] == ["Accuracy", "Size_MB", "FPR", *GENE_ORDER], front[0]
     assert os.path.exists(os.path.join(run_dir, f"all_generations{suffix}.xlsx"))
-    stages: dict = {}
-    with open(os.path.join(run_dir, "progress.jsonl")) as f:
-        for line in f:
-            rec = json.loads(line)
-            if rec["event"] == "stage" and rec["stage"] != "generation":
-                stages[rec["stage"]] = stages.get(rec["stage"], 0.0) + rec["seconds"]
+    stages = {k: sum(v) for k, v in stage_seconds(run_dir).items()
+              if k != "generation"}
     best = max(float(r["Accuracy"]) for r in rows)
     log(f"[{tag}] {preset} pop {pop} x {gens} gens in "
         f"{time.perf_counter() - t0:.1f} s; best val acc {best!r}; front "
         f"{len(front) - 1} rows; stage seconds "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+
+def phase_mobo_search(device: str, data_dir: str, out_dir: str) -> str:
+    """The CLI on ``mobo_penalty``: the reference's MOBO artifacts, a front
+    of at least one feasible genome. Returns the front's path."""
+    from cmoop_audio_processing_torch.cli.main import main as cli_main
+    from cmoop_audio_processing_torch.core.config import get_preset
+    from cmoop_audio_processing_torch.core.genome import GENE_ORDER
+    from cmoop_audio_processing_torch.utils.xlsx import read_rows
+
+    preset = "mobo_penalty"
+    n_init = get_preset(preset).mobo.initial_samples
+    run_dir = os.path.join(out_dir, preset)
+    shutil.rmtree(run_dir, ignore_errors=True)  # a fresh run, fresh progress log
+    t0 = time.perf_counter()
+    assert cli_main([
+        "--preset", preset, "--source", "npy", "--data-path", data_dir,
+        "--device", device, "--max-gen", str(MOBO_ITERS),
+        "--epochs", str(MOBO_EPOCHS), "--out", out_dir,
+    ]) == 0
+    secs = time.perf_counter() - t0
+    front_path = os.path.join(run_dir, "mobo_pareto.csv")
+    with open(front_path, newline="") as f:
+        front = list(csv.reader(f))
+    # an empty front is written as one empty line
+    assert len(front) > 1, f"{preset}: no feasible genome in the front"
+    assert front[0] == ["Accuracy", "Size_MB", "FPR", "CV", *GENE_ORDER], front[0]
+    header, archive = read_rows(os.path.join(run_dir, "mobo_iterations.xlsx"))
+    assert header[:5] == ["Iteration", "Accuracy", "Size_MB", "FPR", "CV"], header
+    assert len(archive) == n_init + MOBO_ITERS, len(archive)
+    stages = stage_seconds(run_dir)
+    assert len(stages["true_eval"]) == len(stages["gp_fit"]) == MOBO_ITERS, stages
+    init_per_eval = stages["init_eval"][0] / n_init
+    eval_s = sum(stages["true_eval"]) / MOBO_ITERS
+    fit_s = sum(stages["gp_fit"]) / MOBO_ITERS
+    best = max(float(r[1]) for r in archive)
+    log(f"[mobo-search] {preset}: {n_init} initial + {MOBO_ITERS} acquired "
+        f"one-lane trainings x {MOBO_EPOCHS} epochs in {secs:.1f} s; best val "
+        f"acc {best!r}; front {len(front) - 1} rows; seconds per true "
+        f"evaluation: initial design {init_per_eval:.3f}, acquisitions "
+        f"{eval_s:.3f} ({', '.join(f'{v:.3f}' for v in stages['true_eval'])}); "
+        f"per GP refit (3 objective GPs + 1 CV GP) {fit_s:.3f} "
+        f"({', '.join(f'{v:.3f}' for v in stages['gp_fit'])})")
+    return front_path
+
+
+def phase_deploy(device: str, data_dir: str, val_wavs, front: str,
+                 out_dir: str) -> None:
+    """``cli/train_final.py`` on the front's first row, twice: the same
+    ``model.npz`` bytes. The reloaded model's logits on the card must equal
+    those of the weights ``train_single`` trains in this process for the
+    same preset, genome and seed, and their validation loss and accuracy
+    must be ``meta.json``'s; the validation wavs, extracted again through
+    the MFCC kernel, must give the split's features and logits bit for
+    bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from cmoop_audio_processing_torch.cli import train_final
+    from cmoop_audio_processing_torch.core.config import get_preset
+    from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
+    from cmoop_audio_processing_torch.engine.export import (
+        load_model,
+        predict,
+        train_single,
+    )
+    from cmoop_audio_processing_torch.frontend.features import (
+        FrontendConfig,
+        extract_features,
+    )
+
+    preset = "nsga_penalty"  # keeps the last-epoch weights, reports their metrics
+    npz = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        assert train_final.main([
+            "--preset", preset, "--front", front, "--row", "0",
+            "--source", "npy", "--data-path", data_dir, "--device", device,
+            "--epochs", str(MOBO_EPOCHS), "--out", out_dir,
+        ]) == 0
+        log(f"[deploy] train_final in {time.perf_counter() - t0:.2f} s")
+        with open(os.path.join(out_dir, "model.npz"), "rb") as f:
+            npz.append(f.read())
+    assert npz[0] == npz[1], "two exports of one training differ"
+    genome, spec, params, state, meta = load_model(out_dir, device=device)
+    assert genome == train_final.genome_from_row(front, 0), genome
+    cfg = get_preset(preset)
+    data = prepare_dataset(dataclasses.replace(cfg.data, source="npy",
+                                               path=data_dir))
+    # the weights before the save/load round trip: a layout or BN-state
+    # fault of the round trip changes the logits, which a saturated
+    # accuracy would not show
+    t_params, t_state, t_metrics = train_single(
+        genome, data, dataclasses.replace(cfg.train, epochs=MOBO_EPOCHS),
+        seed=0, device=device)
+    assert t_metrics == meta["metrics"], (t_metrics, meta["metrics"])
+    want = predict(spec, genome, t_params, t_state, data["x_val"], device=device)
+    logits = predict(spec, genome, params, state, data["x_val"], device=device)
+    assert np.isfinite(logits).all()
+    if not np.array_equal(logits, want):
+        raise AssertionError("reloaded model's logits off the trained "
+                             f"weights' by {np.abs(logits - want).max()}")
+    # the trainer's own validation pass scored these weights: its loss is
+    # meta.json's, so the exported leaves are the ones the metrics measured
+    z = logits - logits.max(-1, keepdims=True)
+    log_p = z - np.log(np.exp(z).sum(-1, keepdims=True))
+    y_val = data["y_val"]
+    loss = float(-log_p[np.arange(len(y_val)), y_val].mean())
+    meta_loss = meta["metrics"]["val_loss"]
+    assert abs(loss - meta_loss) <= 1e-2 * meta_loss + 1e-4, (loss, meta_loss)
+    acc = float((logits.argmax(-1) == y_val).mean())
+    n_val = len(y_val)
+    meta_acc = meta["metrics"]["accuracy"]
+    assert abs(acc - meta_acc) <= 1.0 / n_val + 1e-6, (acc, meta_acc, n_val)
+    # a deployed model's input: wav -> MFCC kernel -> the training scaler
+    feats = extract_features(val_wavs, FrontendConfig(hop_length=KWS_HOP,
+                                                      n_mfcc=13),
+                             kind="mfcc", device=device)
+    x = data["scaler"].transform(feats)[..., None]
+    if not np.array_equal(x, data["x_val"]):
+        raise AssertionError("validation wavs through mfcc_fused: features "
+                             f"off the split's by {np.abs(x - data['x_val']).max()}")
+    wav_logits = predict(spec, genome, params, state, x, device=device)
+    assert np.array_equal(wav_logits, logits), "wav-path logits differ"
+    log(f"[deploy] {genome} -> {os.path.relpath(out_dir, ROOT)}: model.npz "
+        f"{len(npz[0])} B, the same bytes twice; predict on {device}: logits "
+        f"equal to the trained weights' bit for bit; val loss {loss!r} "
+        f"(meta.json {meta_loss!r}), acc {acc!r} over {n_val} (meta.json "
+        f"{meta_acc!r}); the wavs through mfcc_fused give the split's "
+        f"features and logits bit for bit")
+
+
+def phase_compare(fronts: dict, report: str) -> None:
+    """``cli/compare.py`` on named fronts: each hypervolume finite, > 0."""
+    import math
+
+    from cmoop_audio_processing_torch.cli import compare
+
+    assert compare.main([f"--front={k}={v}" for k, v in fronts.items()]
+                        + ["--out", report]) == 0
+    with open(report) as f:
+        rep = json.load(f)
+    hv = rep["hypervolume"]
+    assert sorted(hv) == sorted(fronts), hv
+    assert all(math.isfinite(v) and v > 0 for v in hv.values()), hv
+    log(f"[compare] hypervolume {hv}; true front {rep['true_front_size']} rows")
 
 
 def synth_birds(rng, per_class: int):
@@ -598,12 +781,15 @@ BIRD_GENOMES = [SMOKE_GENOMES[0], SMOKE_GENOMES[1]]  # widest, narrowest
 
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
-    the FFT route."""
+    the FFT route. ``launches`` keeps the first path's count,
+    ``path_launches`` each path's."""
     from cmoop_audio_processing_torch.frontend import cuda_kernels as ck
 
     for name in names:
         ran = [r for r in ("fft", "dense") if ck.route_counts[f"{name}/{r}"] > 0]
-        records[name]["launches"] = ck.launch_counts[name]
+        if records[name]["launches"] is None:
+            records[name]["launches"] = ck.launch_counts[name]
+        records[name].setdefault("path_launches", {})[path] = ck.launch_counts[name]
         records[name]["dft_route"] = "+".join(ran)
         if ran != ["fft"]:
             raise AssertionError(f"kernel {name} on the {path} path: launches "
@@ -641,12 +827,21 @@ def main(argv=None) -> int:
 
     data_dir = os.path.join(WORK, "kws_npy")
     cuda_kernels.reset_launch_counts()
-    phase_extract(args.seed, "cuda", N_WAVS, data_dir)
+    val_wavs = phase_extract(args.seed, "cuda", N_WAVS, data_dir)
     phase_train("train", "cuda", data_dir, SMOKE_GENOMES,
                 TrainConfig(epochs=4, compute_dtype="bfloat16"), min_acc=0.5)
     phase_search("search", "nsga_penalty", "cuda", data_dir,
                  os.path.join(WORK, "results"), epochs=3, pop=8, gens=2)
     read_launches(records, ["mfcc_fused"], "KWS")
+
+    results = os.path.join(WORK, "results")
+    cuda_kernels.reset_launch_counts()
+    mobo_front = phase_mobo_search("cuda", data_dir, results)
+    phase_deploy("cuda", data_dir, val_wavs, mobo_front,
+                 os.path.join(WORK, "deployed"))
+    phase_compare({"NSGA": os.path.join(results, "nsga_penalty", "final_pareto.csv"),
+                   "MOBO": mobo_front}, os.path.join(WORK, "report.json"))
+    read_launches(records, ["mfcc_fused"], "KWS-MOBO")
 
     bird_dir = os.path.join(WORK, "bird_npy")
     cuda_kernels.reset_launch_counts()

@@ -85,18 +85,18 @@ def psi_init(
     Final.xlsx (psi_mobo_2.py:365-369: print the error, return empty
     results); the drivers treat an empty PSI init as a no-op run. A
     zero-byte or corrupt workbook (torn stage-1 export) is handled the same
-    way — all parse failures, including Excel-engine-specific exception
-    types, arrive normalized as UnreadableTableError (utils/xlsx.read_table,
-    the shared reader with cli/psi_merge). Schema is validated up front
-    against the same REQUIRED column set psi_merge enforces; after that, a
-    malformed VALUE in one row (e.g. NaN in a gene column) skips that row
-    with a warning instead of discarding the whole partial population."""
+    way — all parse failures arrive normalized as UnreadableTableError
+    (utils/xlsx.read_rows, which reads without pandas). Schema is validated
+    up front against the same REQUIRED column set psi_merge enforces; after
+    that, a malformed VALUE in one row (e.g. NaN in a gene column) skips
+    that row with a warning instead of discarding the whole partial
+    population."""
     import sys
 
-    from ..utils.xlsx import UnreadableTableError, read_table
+    from ..utils.xlsx import UnreadableTableError, read_rows
 
     try:
-        df = read_table(seed_file)
+        columns, rows = read_rows(seed_file)
     except FileNotFoundError:
         print(f"Error: The file '{seed_file}' was not found.", file=sys.stderr)
         return []
@@ -107,7 +107,7 @@ def psi_init(
         )
         return []
 
-    missing = [c for c in REQUIRED if c not in df.columns]
+    missing = [c for c in REQUIRED if c not in columns]
     if missing:
         # readable table, wrong schema (e.g. a ranked_MOBO.xlsx with no
         # genome columns): same clean no-op as an unreadable file
@@ -119,7 +119,8 @@ def psi_init(
         return []
 
     pop: List[Individual] = []
-    for ridx, r in df.iterrows():
+    for ridx, cells in enumerate(rows):
+        r = dict(zip(columns, cells))
         try:
             g: Genome = {}
             for gene in GENE_ORDER:

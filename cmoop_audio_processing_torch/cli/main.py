@@ -16,10 +16,9 @@ reference's artifact set into <out>/<preset>/: per-generation records,
 periodic + final Pareto CSVs, all-generations workbook, progress JSONL,
 checkpoint (resumable with --resume).
 
-This port carries the plain NSGA-II presets and the surrogate-assisted
-SA-NSGA-II ones (``algorithm == "sa_nsga2"``; their GP fits run on
-``--device``). Options it does not carry yet exit with a message naming
-their ROADMAP.md item.
+Every preset runs: plain NSGA-II, the surrogate-assisted SA-NSGA-II ones
+and MOBO; the GP fits of the last two run on ``--device``. Options this
+port does not carry yet exit with a message naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -31,9 +30,6 @@ import sys
 from typing import Optional
 
 from ..core.config import PRESETS, ExperimentConfig, get_preset
-
-
-SUPPORTED_ALGORITHMS = ("nsga2", "sa_nsga2")
 
 
 def _not_yet(what: str) -> str:
@@ -87,14 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_supported(args) -> None:
     """Exit with a clear message for options this port does not carry."""
-    cfg = get_preset(args.preset)
-    if cfg.algorithm not in SUPPORTED_ALGORITHMS:
-        raise SystemExit(
-            _not_yet(f"preset {args.preset!r} (driver {cfg.algorithm!r})")
-            + "; the presets it carries are "
-            + ", ".join(sorted(n for n, c in PRESETS.items()
-                               if c.algorithm in SUPPORTED_ALGORITHMS))
-        )
     if args.mesh or args.mesh_data != 1:
         raise SystemExit(_not_yet("--mesh/--mesh-data (multi-GPU)"))
     if args.fitness_cache not in (None, "off"):
@@ -128,8 +116,16 @@ def config_from_args(args) -> ExperimentConfig:
         search = dataclasses.replace(search, max_gen=args.max_gen)
     if args.psi_seed_file:
         search = dataclasses.replace(search, psi_seed_file=args.psi_seed_file)
+    mobo = cfg.mobo
+    if mobo is not None:
+        if args.seed is not None:
+            mobo = dataclasses.replace(mobo, seed=args.seed)
+        if args.max_gen:
+            mobo = dataclasses.replace(mobo, max_iterations=args.max_gen)
+        if args.psi_seed_file:
+            mobo = dataclasses.replace(mobo, psi_seed_file=args.psi_seed_file)
     return cfg.replace(
-        data=data, train=train, search=search, output_dir=args.out
+        data=data, train=train, search=search, mobo=mobo, output_dir=args.out
     )
 
 
@@ -173,6 +169,9 @@ def run(cfg: ExperimentConfig, evaluator, resume: bool = False,
 
     reporter = RunReporter(
         cfg.output_dir, cfg.name,
+        # MOBO gates its own schedule (mobo.py passes force=True with
+        # cfg.mobo.periodic_save_every), so the reporter's gate only ever
+        # applies to the EA drivers
         periodic_every=cfg.search.periodic_save_every,
         resume=resume,
     )
@@ -190,8 +189,14 @@ def run(cfg: ExperimentConfig, evaluator, resume: bool = False,
         result = run_sa_nsga2(
             cfg.search, evaluator, reporter, checkpoint_path=ck, device=device
         )
+    elif cfg.algorithm == "mobo":
+        from ..algorithms.mobo import run_mobo
+
+        result = run_mobo(
+            cfg.mobo, evaluator, reporter, checkpoint_path=ck, device=device
+        )
     else:
-        raise ValueError(_not_yet(f"driver {cfg.algorithm!r}"))
+        raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
     _emit_artifact_aliases(reporter, cfg.artifact_suffix)
     return result
 

@@ -190,10 +190,25 @@ class PopulationEvaluator:
         self._eval_count += len(genomes)
         return results  # type: ignore[return-value]
 
+    def run_single_with_params(self, genome: Genome, seed: int):
+        """One-genome training that RETURNS the trained carry — the
+        evaluation paths deliberately discard parameters. It runs the
+        search's own ``run_full`` (same spec, init and shuffle/dropout
+        streams as ``evaluate``), so the exported model reproduces the
+        search-reported fitness (engine/export.py). Returns (finalize's
+        outputs, carry), every leaf with a pop axis of 1."""
+        validate(genome)
+        spec = self._bucket_spec(int(genome["filters"]),
+                                 int(genome["kernel_size"]),
+                                 int(genome["residual_blocks"]))
+        trainer = PopulationTrainer(spec, self.settings, self.cfg.num_classes)
+        return trainer.run_full([genome], self._train, self._val, seed,
+                                self.settings.epochs)
+
     def _run_bucket(self, spec: BucketSpec, padded: List[Genome], seed: int):
         trainer = PopulationTrainer(spec, self.settings, self.cfg.num_classes)
-        out = trainer.run_full(padded, self._train, self._val, seed,
-                               self.settings.epochs)
+        out, _ = trainer.run_full(padded, self._train, self._val, seed,
+                                  self.settings.epochs)
         self._launch_count += 1
         acc_key = "acc_eval" if self.cfg.accuracy_from == "best" else "acc_last"
         return {

@@ -328,12 +328,14 @@ class PopulationTrainer:
 
     def run_full(self, genomes, train, val, seed: int, epoch_end: int):
         """Genome-keyed population init (models/supernet.init_population)
-        + the epoch loop + final metrics for one (padded) population."""
+        + the epoch loop + final metrics for one (padded) population.
+        Returns (final metrics, trained carry): the search reads the
+        metrics, the export also keeps the carry's weights."""
         dev = train[0].device
         params, state, flags = init_population(seed, self.spec, genomes, dev)
         carry = self.init_carry(params, state, flags)
         carry = self.run_chunk(carry, train, val, train_key_of(seed), epoch_end)
-        return self.finalize(carry, val)
+        return self.finalize(carry, val), carry
 
 
 def train_key_of(seed: int) -> int:

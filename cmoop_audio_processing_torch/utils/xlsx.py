@@ -12,13 +12,16 @@ artifacts actually need, with zero third-party dependencies:
 * ``write_xlsx(path, sheets)`` — workbook of typed cells (str/bool/number),
   strings inline (no sharedStrings table needed on the write side). A sheet
   is a header list plus rows of values, so the write path needs no pandas.
-* ``read_xlsx(path[, sheet])`` -> pandas.DataFrame, first row as header,
-  mirroring ``pd.read_excel`` defaults. Understands inline strings plus the
+* ``read_rows(path)`` -> (column names, rows) of a .xlsx or .csv table
+  without pandas, with ``pd.read_excel``/``pd.read_csv``'s column names and
+  cell values. The .xlsx side understands inline strings plus the
   sharedStrings table, booleans and numbers — i.e. sharedStrings-format
   files of the kind Excel writers like openpyxl emit. (No Excel engine
   exists in this image, so openpyxl interop specifically is asserted only
   against hand-built sharedStrings fixtures in tests/test_xlsx.py, not
-  against openpyxl's own output.)
+  against openpyxl's own output.) It is the package's one table reader:
+  the PSI seed file, the fronts of cli/compare.py, cli/train_final.py and
+  cli/psi_merge.py.
 
 Not supported (and not used by the reference's artifacts): formulas, styles,
 dates, merged cells, multi-row headers.
@@ -214,11 +217,9 @@ def sheet_names(path: str) -> List[str]:
     return [s.get("name", f"Sheet{i + 1}") for i, s in enumerate(sheets)]
 
 
-def read_xlsx(path: str, sheet: Union[int, str] = 0):
-    """Read one worksheet into a DataFrame (first row = header), the
-    ``pd.read_excel`` default contract the PSI loaders rely on."""
-    import pandas as pd
-
+def _xlsx_table(path: str, sheet: Union[int, str] = 0):
+    """One worksheet as (header cells, body rows) of typed cells, None where
+    a cell is empty; ([], []) for an empty sheet."""
     with zipfile.ZipFile(path) as zf:
         wb = ET.fromstring(zf.read("xl/workbook.xml"))
         sheets = [s for s in wb.iter() if _local(s.tag) == "sheet"]
@@ -277,16 +278,134 @@ def read_xlsx(path: str, sheet: Union[int, str] = 0):
         rows[r_num] = cells
 
     if not rows:
-        return pd.DataFrame()
+        return [], []
     n_cols = max_col + 1
     ordered = [rows.get(i, {}) for i in range(max(rows) + 1)]
     table = [[r.get(c) for c in range(n_cols)] for r in ordered]
-    header, body = table[0], table[1:]
-    cols = [h if h is not None else f"Unnamed: {i}" for i, h in enumerate(header)]
-    df = pd.DataFrame(body, columns=cols)
-    # mirror read_excel's dtype inference: all-numeric object columns become
-    # numeric dtypes (cells arrive typed from _cell_value already)
-    return df.infer_objects()
+    return table[0], table[1:]
+
+
+def _column_names(header: Sequence) -> List[str]:
+    """``pd.read_excel``/``pd.read_csv`` column names: an empty header cell
+    is ``Unnamed: <index>``."""
+    return [h if h is not None else f"Unnamed: {i}"
+            for i, h in enumerate(header)]
+
+
+# pd.read_csv's default missing-value spellings
+_NA_VALUES = {
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null",
+}
+_TRUE = {"True", "TRUE", "true"}
+_FALSE = {"False", "FALSE", "false"}
+_INT_RE = re.compile(r"\s*[+-]?\d+\s*\Z")
+_FLOAT_RE = re.compile(r"\s*([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?\s*\Z")
+_INF = {"inf": 1, "+inf": 1, "-inf": -1, "infinity": 1, "+infinity": 1,
+        "-infinity": -1}
+_POW10 = [float(f"1e{k}") for k in range(309)]
+
+
+def _csv_float(text: str):
+    """``pd.read_csv``'s float conversion (its default "high" precision
+    parser, pandas' ``precise_xstrtod``), or None for text that is no
+    number. It is not correctly rounded: the first 17 significant digits
+    accumulate in a double, which one multiplication or division by a
+    power of ten then scales, so a value can differ from ``float(text)`` in
+    its last bit. The same double operations give the same bits."""
+    inf = _INF.get(text.strip().lower())
+    if inf:
+        return inf * float("inf")
+    m = _FLOAT_RE.match(text)
+    if not m or not (m.group(2) or m.group(3)):
+        return None
+    sign, int_part, frac_part, exp = m.groups()
+    number, digits, exponent = 0.0, 0, 0
+    for ch in int_part:
+        if digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for ch in (frac_part or "")[:max(17 - digits, 0)]:
+        number = number * 10.0 + (ord(ch) - 48)
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    if exp:
+        exponent += (-1 if exp[0] == "-" else 1) * int(exp.lstrip("+-")[:17])
+    if exponent > 308:
+        return math.copysign(float("inf"), number)
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -616:
+        return 0.0 * number
+    if exponent < -308:
+        return number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
+def _csv_column(cells: Sequence[str]) -> List:
+    """One CSV column typed as ``pd.read_csv`` infers it: int, else float,
+    else bool, else str. A missing cell is NaN, which turns an int column
+    float."""
+    nan = float("nan")
+    present = [c for c in cells if c not in _NA_VALUES]
+    if all(_INT_RE.match(c) for c in present):
+        conv = int if len(present) == len(cells) else _csv_float
+        return [conv(c) if c not in _NA_VALUES else nan for c in cells]
+    floats = [_csv_float(c) if c not in _NA_VALUES else nan for c in cells]
+    if all(v is not None for v in floats):
+        return floats
+    if all(c in _TRUE or c in _FALSE for c in present):
+        return [c in _TRUE if c not in _NA_VALUES else nan for c in cells]
+    return [c if c not in _NA_VALUES else nan for c in cells]
+
+
+def _read_csv_rows(path: str) -> Tuple[List[str], List[List]]:
+    import csv
+
+    with open(path, newline="") as f:
+        lines = [r for r in csv.reader(f) if r]  # blank lines are skipped
+    if not lines:
+        raise ValueError("No columns to parse from file")
+    header, body = lines[0], lines[1:]
+    for i, r in enumerate(body):
+        if len(r) > len(header):
+            raise ValueError(f"row {i + 1}: expected {len(header)} fields, "
+                             f"saw {len(r)}")
+        r.extend([""] * (len(header) - len(r)))
+    names: List[str] = []
+    for name in _column_names([h if h else None for h in header]):
+        # pd.read_csv renames a repeated column name X to X.1, X.2, ...
+        base, k = name, 0
+        while name in names:
+            k += 1
+            name = f"{base}.{k}"
+        names.append(name)
+    columns = [_csv_column([r[j] for r in body]) for j in range(len(header))]
+    return names, [list(cells) for cells in zip(*columns)] if body else []
+
+
+def read_rows(path: str) -> Tuple[List[str], List[List]]:
+    """Read a .xlsx or .csv front or seed table without pandas: (column
+    names, rows of cell values), the names and values ``pd.read_excel`` or
+    ``pd.read_csv`` would give. A missing cell reads as NaN.
+    FileNotFoundError propagates unchanged (callers distinguish 'missing'
+    from 'corrupt'), and EVERY other read or parse failure is normalized to
+    UnreadableTableError, so callers need exactly two except clauses."""
+    nan = float("nan")
+    try:
+        if path.endswith((".xlsx", ".xls")):
+            header, body = _xlsx_table(path)
+            return _column_names(header), [
+                [nan if v is None else v for v in r] for r in body]
+        return _read_csv_rows(path)
+    except FileNotFoundError:
+        raise
+    except Exception as exc:  # noqa: BLE001 — deliberate normalization
+        raise UnreadableTableError(f"{type(exc).__name__}: {exc}") from exc
 
 
 class UnreadableTableError(Exception):
@@ -294,29 +413,3 @@ class UnreadableTableError(Exception):
     sheet XML, corrupted deflate stream, wrong format, or an engine-specific
     parse error (e.g. lxml's XMLSyntaxError under openpyxl, which is a
     SyntaxError subclass and escapes naive (ValueError, ...) envelopes)."""
-
-
-def read_table(path: str):
-    """Read a .xlsx/.xls/.csv front or seed table into a DataFrame.
-
-    The single reader for every PSI-pipeline input (initializers.psi_init,
-    cli/psi_merge, algorithms/mobo): FileNotFoundError propagates unchanged
-    (callers distinguish 'missing' from 'corrupt'), and EVERY other read or
-    parse failure — whichever engine raised it and whatever its type — is
-    normalized to UnreadableTableError, so callers need exactly two except
-    clauses and can never crash on an engine-specific exception type."""
-    import pandas as pd
-
-    is_excel = path.endswith((".xlsx", ".xls"))
-    try:
-        if is_excel:
-            try:
-                return pd.read_excel(path)
-            except ImportError:
-                # no Excel engine in the image: stdlib OOXML reader above
-                return read_xlsx(path)
-        return pd.read_csv(path)
-    except FileNotFoundError:
-        raise
-    except Exception as exc:  # noqa: BLE001 — deliberate normalization
-        raise UnreadableTableError(f"{type(exc).__name__}: {exc}") from exc

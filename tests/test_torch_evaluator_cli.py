@@ -112,6 +112,34 @@ def test_fake_eval_artifacts_are_byte_identical_to_the_jax_cli(tmp_path, max_gen
         assert filecmp.cmp(jdir / name, tdir / name, shallow=False), name
 
 
+@pytest.mark.parametrize("alias", ["acc_size_nsga_1", "acc_fpr_nsga_1",
+                                   "size_fpr_nsga_1"])
+def test_bi_objective_aliases_write_the_jax_clis_artifacts(tmp_path, monkeypatch,
+                                                           alias):
+    """Each bi-objective stage-1 alias module, run as a script, writes
+    --fake-eval artifacts byte-identical to the JAX alias's (NSGA-II has no
+    GP, so they are exact)."""
+    import runpy
+    import sys
+
+    for pkg, extra in (("cmoop_audio_processing_tpu", []),
+                       ("cmoop_audio_processing_torch", ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", [alias, "--fake-eval", "--max-gen", "3",
+                                          "--pop-size", "10", "--out",
+                                          str(tmp_path / pkg)] + extra)
+        with pytest.raises(SystemExit) as done:
+            runpy.run_module(f"{pkg}.cli.{alias}", run_name="__main__")
+        assert done.value.code == 0
+    jdir = tmp_path / "cmoop_audio_processing_tpu" / alias
+    tdir = tmp_path / "cmoop_audio_processing_torch" / alias
+    csvs = sorted(f for f in os.listdir(jdir) if f.endswith(".csv"))
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    suffix = tconfig.PRESETS[alias].artifact_suffix
+    assert {"final_pareto.csv", f"final_pareto_{suffix}.csv"} <= set(csvs)
+    for name in csvs:
+        assert filecmp.cmp(jdir / name, tdir / name, shallow=False), name
+
+
 def test_resume_of_a_completed_fake_run_keeps_artifacts(tmp_path):
     args = ["--preset", "acc_size_nsga_1", "--fake-eval", "--max-gen", "3",
             "--out", str(tmp_path), "--device", "cpu"]
@@ -184,7 +212,7 @@ def test_real_cpu_run_on_default_synthetic_data(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--preset", "sa_nsga_penalty", "--launch-budget", "5"],
-    ["--preset", "mobo_penalty"],
+    ["--preset", "mobo_penalty", "--launch-budget", "5"],
     ["--preset", "nsga_penalty", "--mesh", "2"],
     ["--preset", "nsga_penalty", "--fitness-cache", "cache.jsonl"],
     ["--preset", "nsga_penalty", "--compaction-chunk", "4"],
@@ -193,8 +221,9 @@ def test_real_cpu_run_on_default_synthetic_data(tmp_path):
 ], ids=["sa_nsga2", "mobo", "mesh", "fitness_cache", "compaction",
         "launch_budget", "vmap"])
 def test_options_the_port_does_not_carry_exit_naming_the_roadmap(extra):
-    """The sa_nsga2 presets run (tests/test_torch_sa_nsga2.py); an option
-    the port does not carry still exits for them."""
+    """The sa_nsga2 and mobo presets run (tests/test_torch_sa_nsga2.py,
+    tests/test_torch_mobo.py); an option the port does not carry still
+    exits for them."""
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         tcli.main(extra + ["--fake-eval", "--device", "cpu"])
 

@@ -146,3 +146,72 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
         assert (run_dir / "all_generations.csv").exists()
         assert (run_dir / "all_generations.xlsx").exists()
         assert (run_dir / final).exists()
+
+
+def test_mobo_export_and_compare_run_with_pandas_sklearn_h5py_and_jax_blocked(
+        tmp_path):
+    """The MOBO presets (``psi_mobo_2`` reading examples/all8/Final.csv),
+    ``train_final`` from the MOBO front and ``compare`` on two CSV fronts
+    complete on the CPU with the optional packages and JAX unimportable."""
+    final_csv = os.path.join(ROOT, "examples", "all8", "Final.csv")
+    nsga_front = os.path.join(ROOT, "examples", "all8", "front_sa_nsga_penalty.csv")
+    out = str(tmp_path / "out")
+    script = textwrap.dedent(f"""
+        import importlib, json, os, sys
+        BLOCKED = {sorted(LAZY_ONLY | FORBIDDEN)!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{{name}} is blocked")
+
+        sys.meta_path.insert(0, Block())
+        for m in ("cli.mobo_penalty", "cli.psi_mobo_2", "cli.acc_size_nsga_1",
+                  "cli.acc_fpr_nsga_1", "cli.size_fpr_nsga_1",
+                  "cli.train_final", "cli.compare", "cli.psi_merge",
+                  "algorithms.mobo", "surrogate.acquisition",
+                  "engine.export", "models.keras_export",
+                  "metrics.hypervolume", "metrics.quality",
+                  "metrics.tchebycheff"):
+            importlib.import_module("cmoop_audio_processing_torch." + m)
+        from cmoop_audio_processing_torch.cli import compare, train_final
+        from cmoop_audio_processing_torch.cli.main import main
+        from cmoop_audio_processing_torch.data.loaders import save_npy_dir
+        from cmoop_audio_processing_torch.data.synthetic import make_synthetic
+
+        out = {out!r}
+        assert main(["--preset", "mobo_penalty", "--fake-eval", "--device",
+                     "cpu", "--max-gen", "2", "--out", out]) == 0
+        assert main(["--preset", "psi_mobo_2", "--fake-eval", "--device",
+                     "cpu", "--max-gen", "2", "--psi-seed-file",
+                     {final_csv!r}, "--out", out]) == 0
+        front = os.path.join(out, "psi_mobo_2", "mobo_pareto.csv")
+        save_npy_dir(make_synthetic(num_classes=10, n_train=64, n_eval=32,
+                                    time_steps=12, features=9),
+                     os.path.join(out, "npy"))
+        assert train_final.main([
+            "--preset", "nsga_penalty", "--front", front, "--row", "0",
+            "--source", "npy", "--data-path", os.path.join(out, "npy"),
+            "--epochs", "1", "--device", "cpu",
+            "--out", os.path.join(out, "deployed")]) == 0
+        report = os.path.join(out, "report.json")
+        assert compare.main(["--front", "MOBO=" + front, "--front",
+                             "SA=" + {nsga_front!r}, "--out", report]) == 0
+        with open(report) as f:
+            hv = json.load(f)["hypervolume"]
+        assert sorted(hv) == ["MOBO", "SA"] and min(hv.values()) > 0, hv
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    for preset in ("mobo_penalty", "psi_mobo_2"):
+        run_dir = tmp_path / "out" / preset
+        for name in ("mobo_pareto.csv", "mobo_iterations.xlsx",
+                     "all_generations.csv", "mobo_iteration_2.csv"):
+            assert (run_dir / name).exists(), (preset, name)
+    assert (tmp_path / "out" / "deployed" / "model.npz").exists()
