@@ -7,7 +7,9 @@
   the NSGA-II and MOBO fronts compared;
 * BirdCLEF: 5-s wav files -> extraction CLI (fused log-mel kernel) -> 501x40
   npy split -> template-B population trainer -> GP-surrogate SA-NSGA-II
-  (``sa_nsga_penalty``) front.
+  (``sa_nsga_penalty``) front;
+* the evaluator's launch planner on both splits: lane compaction, the vmap
+  forward, fitness-cache replay, the card's executed training FLOP rate.
 
     python3 chip_smoke.py [--seed N]
 
@@ -61,7 +63,22 @@ Phases (any failure exits non-zero; nothing is caught):
              genome, twice: bit-for-bit repeatable fitness; peak memory;
 11. bird-search — the CLI, ``--preset sa_nsga_penalty --source npy --device
              cuda``: GP fits on the card; the reference's surrogate
-             artifacts, with a front of at least one feasible genome.
+             artifacts, with a front of at least one feasible genome;
+12. planner — 8 genomes of one (64, 5) bucket, mixed depth, BN and dropout,
+             on phase 3's split in bf16 (12 epochs, patience 2): one-shot,
+             compacted every 3 epochs (twice), the vmap forward one-shot,
+             and a fresh evaluator on the compacted run's fitness cache.
+             The compacted run must really compact, repeat bit for bit
+             and agree with the one-shot run within ``patience`` epochs and
+             one validation sample; the replay must return its fitness bit
+             for bit and train nothing (the vmap run's drift from the
+             one-shot run is printed). Then the executed training FLOP rate
+             at KWS and at BirdCLEF 501x40 (phase 9's split, 1 and 2
+             lanes, 2 epochs). Last, the vmap forward against the grouped
+             one from the same params and BN state, initial and after each
+             of 3 epochs of grouped bf16 training: a training step's
+             logits and BN state and a validation pass's metrics must be
+             bit for bit, its gradients within 2^-6.
 
 Launch counts are zeroed just before each path (phase 3, phase 6, phase 9)
 and read just after it (phase 5, phase 8, phase 11): each kernel of a path
@@ -779,6 +796,281 @@ def phase_bird_extract(seed: int, device: str, wav_dir: str,
 BIRD_GENOMES = [SMOKE_GENOMES[0], SMOKE_GENOMES[1]]  # widest, narrowest
 
 
+# the planner phase: 8 genomes of one (filters, kernel) bucket at full
+# width, of mixed depth, BN, FC entry and dropout
+PLANNER_GENOMES = [
+    dict(filters=64, kernel_size=5, use_bn=bn, residual_blocks=nb,
+         fc_layers=nfc, use_dropout=do)
+    for bn, nb, nfc, do in ((True, 3, 4, True), (False, 1, 1, False),
+                            (True, 1, 2, True), (True, 2, 3, False),
+                            (False, 2, 4, True), (True, 3, 1, False),
+                            (False, 3, 2, True), (True, 2, 1, True))
+]
+PLANNER_EPOCHS = 12
+PLANNER_PATIENCE = 2
+PLANNER_CHUNK = 3
+# twice the presets' learning rate: at 1e-3 nearly every genome still
+# improves at the 12-epoch cap on this easy synthetic split, and nothing
+# would be left to compact
+PLANNER_LR = 2e-3
+VMAP_EPOCHS = 3
+# Bounds on a vmap step against the grouped step from the same state
+# (``vmap_step``): the two run other kernels, whose sums round in another
+# order, and a backward pass magnifies that (flipped max-pool and ReLU
+# choices among them). Each bound is 5-40x the card's reading at the state
+# where it is largest (PERF.md): logits 1.6e-6 (f32) and 2.8e-3 (bf16) of
+# the largest logit; BN state 7.4e-8 and 2.8e-5; gradients, by the norm of
+# their difference, 3.9e-3 and 4.6e-2 from the initial state (1e-5-3e-5
+# and 1e-4-3e-3 from trained ones); validation loss 0 and 1.6e-6; accuracy
+# and FPR equal. Accuracies are held within one validation sample.
+VMAP_BOUNDS = {
+    "float32": {"logits": 1e-5, "state": 1e-6, "grads": 2e-2,
+                "val_loss": 1e-6},
+    "bfloat16": {"logits": 2.0 ** -5, "state": 2.0 ** -12, "grads": 2.0 ** -2,
+                 "val_loss": 2.0 ** -14},
+}
+
+
+def epoch_flops(ev, pop: int, spec) -> float:
+    """Training FLOPs of one lockstep epoch of a ``pop``-lane launch: the
+    spec's largest genome, 3x its forward for every padded training row and
+    1x for every padded validation row."""
+    from cmoop_audio_processing_torch.models.genome_arch import count_fwd_flops
+
+    gmax = {"filters": spec.filters, "kernel_size": spec.kernel,
+            "use_bn": True, "residual_blocks": spec.max_blocks,
+            "fc_layers": 4, "use_dropout": False}
+    hw = tuple(int(d) for d in ev._train[0].shape[1:3])
+    fwd = count_fwd_flops(gmax, hw, ev.cfg.num_classes, ev.cfg.template)
+    return pop * fwd * (3 * int(ev._train[0].shape[0])
+                        + int(ev._val[0].shape[0]))
+
+
+def phase_planner(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
+    """The launch planner on the card, at full width on the KWS split, in
+    bf16: (a) one-shot, (b) compacted every 3 epochs, (c) (b) again, (d) the
+    vmap forward one-shot, (e) a fresh evaluator on (b)'s fitness cache.
+    Gates: (b) really compacted; (c) equals (b) and (e) returns (b)'s
+    fitness bit for bit, (e) training nothing; (b) agrees with (a) bit for
+    bit or, failing that, within ``patience`` epochs and one validation
+    sample. How far (b) and (d) drift from (a) over the whole run is
+    printed. Then the executed training FLOP rate at KWS and at BirdCLEF
+    501x40 (one population, 2 epochs, 1 lane and 2 lanes). Last, the vmap
+    forward against the grouped one, from the initial state and from
+    trained ones (``vmap_steps``)."""
+    import dataclasses
+
+    from cmoop_audio_processing_torch.core.config import DataConfig, TrainConfig
+    from cmoop_audio_processing_torch.core.genome import genome_key
+    from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
+    from cmoop_audio_processing_torch.engine.evaluator import PopulationEvaluator
+
+    log(f"[planner] card: {smi}")
+    data = prepare_dataset(DataConfig(source="npy", path=data_dir,
+                                      num_classes=CLASSES))
+    n_val = len(data["y_val"])
+    base = TrainConfig(epochs=PLANNER_EPOCHS, patience=PLANNER_PATIENCE,
+                       learning_rate=PLANNER_LR, compute_dtype="bfloat16",
+                       bucket_genes=("filters", "kernel_size"))
+    cache = os.path.join(WORK, "planner_fitness_cache.jsonl")
+    if os.path.exists(cache):
+        os.remove(cache)
+
+    def run(tag, cfg, cache_path=None):
+        ev = PopulationEvaluator(data, cfg, device=device,
+                                 fitness_cache_path=cache_path)
+        t0 = time.perf_counter()
+        fits = ev.evaluate(PLANNER_GENOMES, seed=5)
+        secs = time.perf_counter() - t0
+        timing = ev.timings[-1]
+        lanes = [r["lanes"] for r in timing["chunks"]]
+        log(f"[planner] ({tag}) {secs:.2f} s; {timing['launches']} training "
+            f"segments, lanes per segment {lanes}, cache hits "
+            f"{timing['cache_hits']}")
+        epochs = [ev._epoch_history.get(genome_key(g)) for g in PLANNER_GENOMES]
+        return ev, fits, epochs, secs
+
+    ev_a, fits_a, ep_a, secs_a = run("a: one-shot",
+                                     dataclasses.replace(base, compaction_chunk=0))
+    compacted = dataclasses.replace(base, compaction_chunk=PLANNER_CHUNK)
+    ev_b, fits_b, ep_b, _ = run("b: compacted", compacted, cache)
+    _, fits_c, _, _ = run("c: compacted again", compacted)
+    _, fits_d, ep_d, _ = run("d: vmap one-shot", dataclasses.replace(
+        base, compaction_chunk=0, parallel_impl="vmap"))
+    ev_e, fits_e, _, _ = run("e: replay of (b)'s cache", compacted, cache)
+
+    (rec_b,) = ev_b.timings[-1]["chunks"]
+    if not min(rec_b["lanes"]) < rec_b["lanes"][0]:
+        raise AssertionError(f"(b) never compacted: lanes {rec_b['lanes']}, "
+                             f"epochs {rec_b['epochs']}")
+    if fits_c != fits_b:
+        raise AssertionError(f"(c) differs from (b): {fits_c} vs {fits_b}")
+    if fits_e != fits_b:
+        raise AssertionError(f"(e) differs from (b): {fits_e} vs {fits_b}")
+    t_e = ev_e.timings[-1]
+    assert t_e["cache_hits"] == len(PLANNER_GENOMES), t_e
+    assert t_e["launches"] == 0 and ev_e.total_true_evals == 0, t_e
+    for tag, fits, ep in (("b", fits_b, ep_b), ("d", fits_d, ep_d)):
+        d_acc = [abs(x[0] - y[0]) for x, y in zip(fits, fits_a)]
+        d_fpr = [abs(x[2] - y[2]) for x, y in zip(fits, fits_a)]
+        d_ep = [abs(x - y) for x, y in zip(ep, ep_a)]
+        n_diff = sum(1 for a, e in zip(d_acc, d_ep) if a or e)
+        # accuracies are f32 values: one sample is 1/n_val up to rounding
+        within = (max(d_ep) <= PLANNER_PATIENCE
+                  and max(d_acc) <= 1.0 / n_val + 1e-6)
+        held = ("bit for bit" if fits == fits_a and ep == ep_a else
+                "within the bound" if within else "beyond the bound")
+        log(f"[planner] ({tag}) against (a): {n_diff} of "
+            f"{len(PLANNER_GENOMES)} genomes differ in epochs_ran or "
+            f"accuracy; largest |d epochs| {max(d_ep)}, |d acc| "
+            f"{max(d_acc)!r} (one validation sample {1 / n_val!r}), |d fpr| "
+            f"{max(d_fpr)!r}; {held}; epochs_ran {ep}")
+        # (b) runs (a)'s very steps until its first compaction, so only the
+        # epochs after it can drift: it is held to the bound. (d) differs
+        # from the first backward on (other kernels sum the gradients in
+        # another order), and a 12-epoch run that stops on val-loss noise
+        # amplifies that far past the bound (PERF.md); it is held a step at
+        # a time from the same states instead (vmap_steps)
+        if tag == "b" and not within:
+            raise AssertionError(f"({tag}) off (a) beyond the bound: epochs "
+                                 f"{ep} vs {ep_a}, fitness {fits} vs {fits_a}")
+    assert all(abs(v) < float("inf") and 0.0 <= f[0] <= 1.0
+               for f in fits_d for v in f), fits_d
+    assert all(e >= 1 for e in ep_d), ep_d
+    log(f"[planner] epochs_ran (a) {ep_a}; accuracy (a) "
+        f"{[round(f[0], 4) for f in fits_a]}")
+    planner_rates(device, ev_a, secs_a, bird_dir)
+
+    # the vmap forward against the grouped one from the same states: the
+    # initial params and those after each of VMAP_EPOCHS epochs of grouped
+    # training, with dropout and no lane stopping, in both compute dtypes
+    t0 = time.perf_counter()
+    for dtype, bounds in VMAP_BOUNDS.items():
+        for epoch, m in enumerate(vmap_steps(device, ev_a, dtype)):
+            log(f"[planner] vmap against grouped, {dtype}, after {epoch} "
+                f"epochs of grouped training: {m}")
+            off = [k for k, b in bounds.items() if b is not None and m[k] > b]
+            if m["val_acc"] > 1.0 / n_val + 1e-6:
+                off.append("val_acc")
+            if off:
+                raise AssertionError(f"a vmap step off the grouped one in "
+                                     f"{off} after {epoch} epochs ({dtype}): "
+                                     f"{m}, bounds {bounds}")
+    log(f"[planner] vmap checks {time.perf_counter() - t0:.2f} s")
+
+
+def vmap_step(device: str, ev, dtype: str, carry=None) -> dict:
+    """One training step of the planner's population on the first 64 rows
+    of ``ev``'s padded training split, and one validation pass over its
+    padded validation split, through the vmap forward and the grouped one,
+    from the same params and BN state: ``carry``'s, or the initial ones.
+    Returns the largest difference of the step's logits, of its new BN
+    state and of the lanes' validation losses, each relative to the
+    grouped one's largest magnitude; the norm of the gradients' difference
+    relative to the grouped gradients' norm (``grads``) and the largest
+    difference relative to the largest gradient (``grads_max``); and the
+    largest difference of a lane's validation accuracy and FPR."""
+    import torch
+
+    from cmoop_audio_processing_torch.engine import trainer as tt
+    from cmoop_audio_processing_torch.models import supernet as ts
+
+    f, k = PLANNER_GENOMES[0]["filters"], PLANNER_GENOMES[0]["kernel_size"]
+    spec = ts.BucketSpec("A", f, k, CLASSES, compute_dtype=dtype, max_blocks=3)
+    if carry is None:
+        params, state, flags = ts.init_population(5, spec, PLANNER_GENOMES,
+                                                  device)
+    else:
+        params, state, flags = carry["params"], carry["state"], carry["flags"]
+    x, y, w = (t[:64] for t in ev._train)
+    dkey = torch.tensor(5, device=device)
+    out = {}
+    for impl in ("grouped", "vmap"):
+        trainer = tt.PopulationTrainer(
+            spec, tt.TrainSettings(parallel_impl=impl), CLASSES)
+        leaves = ts.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        logits, new_state = trainer.forward(leaves, state, flags, x,
+                                            train=True, dropout_key=dkey)
+        loss, _ = trainer.pop_loss(leaves, state, flags, x, y, w, dkey)
+        grads = torch.autograd.grad(loss, ts.tree_leaves(leaves))
+        out[impl] = ([logits.detach()],
+                     [t.detach() for t in ts.tree_leaves(new_state)], grads,
+                     trainer.evaluate(params, state, flags, ev._val))
+
+    def rel(got, want):
+        return (max(float((a - b).float().abs().max()) for a, b in zip(got, want))
+                / max(float(b.float().abs().max()) for b in want))
+
+    (lg_g, st_g, gr_g, (loss_g, acc_g, fpr_g)) = out["grouped"]
+    (lg_v, st_v, gr_v, (loss_v, acc_v, fpr_v)) = out["vmap"]
+    def norm(ts_):
+        return sum(float(t.float().pow(2).sum()) for t in ts_) ** 0.5
+
+    return {"logits": rel(lg_v, lg_g), "state": rel(st_v, st_g),
+            "grads": norm([a - b for a, b in zip(gr_v, gr_g)]) / norm(gr_g),
+            "grads_max": rel(gr_v, gr_g),
+            "val_loss": rel([loss_v], [loss_g]),
+            "val_acc": float((acc_v - acc_g).abs().max()),
+            "val_fpr": float((fpr_v - fpr_g).abs().max())}
+
+
+def vmap_steps(device: str, ev, dtype: str):
+    """``vmap_step`` from the initial params and after each of
+    ``VMAP_EPOCHS`` epochs of grouped training of the planner's population
+    on ``ev``'s padded splits in ``dtype``, with a patience no lane
+    reaches; yields its results."""
+    import dataclasses
+
+    from cmoop_audio_processing_torch.engine import trainer as tt
+    from cmoop_audio_processing_torch.models import supernet as ts
+
+    f, k = PLANNER_GENOMES[0]["filters"], PLANNER_GENOMES[0]["kernel_size"]
+    spec = ts.BucketSpec("A", f, k, CLASSES, compute_dtype=dtype, max_blocks=3)
+    trainer = tt.PopulationTrainer(spec, dataclasses.replace(
+        ev.settings, epochs=VMAP_EPOCHS, patience=VMAP_EPOCHS + 1), CLASSES)
+    carry = trainer.init_carry(
+        *ts.init_population(5, spec, PLANNER_GENOMES, device))
+    yield vmap_step(device, ev, dtype, carry)
+    for epoch in range(VMAP_EPOCHS):
+        carry = trainer.run_chunk(carry, ev._train, ev._val,
+                                  tt.train_key_of(5), epoch + 1)
+        yield vmap_step(device, ev, dtype, carry)
+    assert not bool(carry["stopped"].any())
+
+
+def planner_rates(device: str, kws_ev, kws_secs: float, bird_dir: str) -> None:
+    """Executed training FLOP rates: KWS from ``kws_ev``'s last (one-shot)
+    launch, BirdCLEF 501x40 from one population of 1 and of 2 lanes, 2
+    epochs each, nothing stopping early."""
+    from cmoop_audio_processing_torch.core.config import DataConfig, TrainConfig
+    from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
+    from cmoop_audio_processing_torch.engine.evaluator import PopulationEvaluator
+
+    f, k = PLANNER_GENOMES[0]["filters"], PLANNER_GENOMES[0]["kernel_size"]
+    (rec,) = kws_ev.timings[-1]["chunks"]
+    spec = kws_ev._bucket_spec(f, k, rec["max_blocks"])
+    rate = epoch_flops(kws_ev, rec["pop"], spec) * max(rec["epochs"]) / kws_secs
+    log(f"[planner] KWS executed training rate {rate / 1e12:.4f} TFLOP/s "
+        f"({rec['pop']} lanes x {max(rec['epochs'])} epochs, {kws_secs:.2f} s)")
+    bird = prepare_dataset(DataConfig(source="npy", path=bird_dir,
+                                      num_classes=BIRD_CLASSES))
+    bird_cfg = TrainConfig(num_classes=BIRD_CLASSES, template="B", epochs=2,
+                           patience=10, compute_dtype="bfloat16",
+                           compaction_chunk=0,
+                           bucket_genes=("filters", "kernel_size"))
+    pair = [PLANNER_GENOMES[0], PLANNER_GENOMES[5]]  # both 3 blocks
+    for lanes in (1, 2):
+        ev = PopulationEvaluator(bird, bird_cfg, device=device)
+        t0 = time.perf_counter()
+        ev.evaluate(pair[:lanes], seed=5)
+        secs = time.perf_counter() - t0
+        spec = ev._bucket_spec(f, k, 3)
+        rate = epoch_flops(ev, lanes, spec) * bird_cfg.epochs / secs
+        log(f"[planner] BirdCLEF 501x40 executed training rate, {lanes} "
+            f"lane(s): {rate / 1e12:.4f} TFLOP/s ({secs:.2f} s for 2 epochs "
+            f"of {len(bird['y_train'])} rows)")
+
+
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
     the FFT route. ``launches`` keeps the first path's count,
@@ -854,6 +1146,7 @@ def main(argv=None) -> int:
                  os.path.join(WORK, "results"), epochs=BIRD_SEARCH_EPOCHS,
                  pop=6, gens=2)
     read_launches(records, ["log_mel_fused"], "BirdCLEF")
+    phase_planner("cuda", data_dir, bird_dir, smi)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -17,8 +17,11 @@ periodic + final Pareto CSVs, all-generations workbook, progress JSONL,
 checkpoint (resumable with --resume).
 
 Every preset runs: plain NSGA-II, the surrogate-assisted SA-NSGA-II ones
-and MOBO; the GP fits of the last two run on ``--device``. Options this
-port does not carry yet exit with a message naming their ROADMAP.md item.
+and MOBO; the GP fits of the last two run on ``--device``. Every real run
+records its finished trainings in <out>/<preset>/fitness_cache.jsonl (a
+fresh run truncates it, ``--resume`` replays it). ``--mesh``,
+``--mesh-data`` and ``--launch-budget``, which this port does not carry,
+exit with a message naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -57,18 +60,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the run's checkpoint if present")
     p.add_argument("--fitness-cache", metavar="PATH",
-                   help="durable (genome, seed) -> fitness JSONL; not in this "
-                        "port yet ('off' is accepted)")
+                   help="durable (genome, seed) -> fitness JSONL: finished "
+                        "trainings survive a mid-generation crash and are "
+                        "replayed on resume. Defaults to <out>/<preset>/"
+                        "fitness_cache.jsonl for every real run (a fresh "
+                        "run truncates it, --resume replays it); pass "
+                        "'off' to disable")
     p.add_argument("--fake-eval", action="store_true",
                    help="use the deterministic closed-form evaluator (no training)")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"])
     p.add_argument("--parallel-impl", choices=["grouped", "vmap"],
-                   help="population forward implementation (this port has "
-                        "only 'grouped')")
+                   help="population forward implementation: one grouped "
+                        "network, or the single-model forward mapped over "
+                        "the lanes with torch.func.vmap")
     p.add_argument("--compaction-chunk", type=int,
-                   help="early-stop lane compaction; not in this port yet")
+                   help="epochs between early-stop lane compactions: -1 "
+                        "adaptive (default), 0 always one-shot, N fixed")
     p.add_argument("--launch-budget", type=float, metavar="SECONDS",
-                   help="per-launch duration bound; not in this port yet")
+                   help="per-launch duration bound; not in this port")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard the population over N devices; not in this "
                         "port yet")
@@ -85,14 +94,8 @@ def check_supported(args) -> None:
     """Exit with a clear message for options this port does not carry."""
     if args.mesh or args.mesh_data != 1:
         raise SystemExit(_not_yet("--mesh/--mesh-data (multi-GPU)"))
-    if args.fitness_cache not in (None, "off"):
-        raise SystemExit(_not_yet("--fitness-cache"))
-    if args.compaction_chunk is not None:
-        raise SystemExit(_not_yet("--compaction-chunk (lane compaction)"))
     if args.launch_budget is not None:
         raise SystemExit(_not_yet("--launch-budget"))
-    if args.parallel_impl == "vmap":
-        raise SystemExit(_not_yet("--parallel-impl vmap"))
 
 
 def config_from_args(args) -> ExperimentConfig:
@@ -107,6 +110,12 @@ def config_from_args(args) -> ExperimentConfig:
         train = dataclasses.replace(train, epochs=args.epochs)
     if args.compute_dtype:
         train = dataclasses.replace(train, compute_dtype=args.compute_dtype)
+    if args.compaction_chunk is not None:
+        train = dataclasses.replace(
+            train, compaction_chunk=args.compaction_chunk
+        )
+    if args.parallel_impl:
+        train = dataclasses.replace(train, parallel_impl=args.parallel_impl)
     search = cfg.search
     if args.seed is not None:
         search = dataclasses.replace(search, seed=args.seed)
@@ -129,7 +138,8 @@ def config_from_args(args) -> ExperimentConfig:
     )
 
 
-def make_evaluator(cfg: ExperimentConfig, fake: bool, device="cuda"):
+def make_evaluator(cfg: ExperimentConfig, fake: bool, device="cuda",
+                   fitness_cache_path: Optional[str] = None):
     if fake:
         from ..engine.evaluator import FakeEvaluator
 
@@ -140,7 +150,8 @@ def make_evaluator(cfg: ExperimentConfig, fake: bool, device="cuda"):
     from ..engine.evaluator import PopulationEvaluator
 
     return PopulationEvaluator(prepare_dataset(cfg.data), cfg.train,
-                               device=device)
+                               device=device,
+                               fitness_cache_path=fitness_cache_path)
 
 
 def _emit_artifact_aliases(reporter, suffix: Optional[str]) -> None:
@@ -207,7 +218,31 @@ def main(argv: Optional[list] = None, preset: Optional[str] = None) -> int:
     args = build_parser().parse_args(argv)
     check_supported(args)
     cfg = config_from_args(args)
-    evaluator = make_evaluator(cfg, args.fake_eval, args.device)
+    # The durable fitness cache is on for every real (non-fake) run, so a
+    # first run that crashes mid-generation already has its finished
+    # trainings on disk for --resume to replay. A fresh (non-resume) run
+    # means "start over": any existing cache is truncated; --resume opens
+    # it (and refuses a fingerprint mismatch). Explicit path wins, 'off'
+    # disables.
+    cache_path = args.fitness_cache
+    if args.fake_eval:
+        if cache_path not in (None, "off"):
+            raise SystemExit(
+                "--fitness-cache requires a real evaluator; the closed-form "
+                "--fake-eval path records nothing (and must never touch a "
+                "real run's cache file)"
+            )
+        cache_path = None
+    elif cache_path is None:
+        cache_path = os.path.join(
+            cfg.output_dir, cfg.name, "fitness_cache.jsonl"
+        )
+    if cache_path == "off":
+        cache_path = None
+    if cache_path and not args.resume and os.path.exists(cache_path):
+        os.remove(cache_path)
+    evaluator = make_evaluator(cfg, args.fake_eval, args.device,
+                               fitness_cache_path=cache_path)
     pareto, _ = run(cfg, evaluator, resume=args.resume, device=args.device)
     print(f"\nFinal Pareto-optimal feasible solutions ({len(pareto)}):")
     for sol in pareto:

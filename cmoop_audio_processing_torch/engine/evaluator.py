@@ -5,24 +5,43 @@ Instead of the reference's serial build/fit per individual
 (sa_nsga_penalty.py:205-253), genomes are grouped into shape buckets
 (``TrainConfig.bucket_genes``); each bucket's sub-population is padded to a
 power of two (at most ``max_models_per_program``, repeating its first
-genome) and trained as ONE grouped population (engine/trainer.py)
-specialized to the deepest genome it holds. When a bucket splits into
-several launches, genomes are packed by their last observed stop epoch so
-fast stoppers share a launch.
+genome) and trained as ONE population (engine/trainer.py) specialized to
+the deepest genome it holds.
+
+The launch plan is the JAX package's:
+
+* cache replay — with a fitness cache, (genome, seed) pairs already on disk
+  are answered from it and never trained (utils/fitness_cache.py);
+* stop-epoch packing — when a bucket splits into several launches, genomes
+  are ordered by their last observed stop epoch so fast stoppers share a
+  launch;
+* lane compaction (``_effective_chunk``) — a population trains in chunks
+  of epochs; between chunks the lanes that early-stopped are finalized and
+  dropped, and the survivors go on as a population of the next power of
+  two. Compacted launches run last.
+
+The JAX package's heavy-lane split and launch-duration bound are left out
+(ROADMAP.md): the plan is the JAX evaluator's with
+``launch_seconds_budget=0`` and no split, and ``TrainConfig.
+launch_seconds_budget`` is not read.
+
+Launches run one after another and each one's results are read, published
+and written to the fitness cache before the next starts (the JAX package's
+``CMOOP_SYNC_DISPATCH=1`` mode), so a crash loses only the launch that was
+running. ``CMOOP_LOG_LAUNCHES=1`` prints each launch to stderr.
 
 Size is computed analytically from the genome (models/genome_arch.py),
 exactly reproducing Keras count_params * 4 bytes (nsga_penalty.py:337-344).
 
 A genome's fitness is a function of (genome, seed, dataset) alone:
 genome-keyed init and uid-keyed dropout streams plus a seed-keyed shuffle
-make it independent of which genomes share its population. On CUDA the
-path runs in deterministic mode (core/device.py), so re-evaluations repeat
-bit for bit.
+make it independent of which genomes share its population, so chunking,
+compaction and packing leave it unchanged (bit for bit on the CPU; on CUDA
+another lane count runs other kernels, see utils/fitness_cache.py). On
+CUDA the path runs in deterministic mode (core/device.py), so
+re-evaluations of one launch plan repeat bit for bit.
 
-Not carried over from the JAX package (ROADMAP.md lists them): lane
-compaction, device meshes, the launch-duration budget, the heavy-lane
-split, the ``CMOOP_*`` environment knobs with the in-flight window, and
-the durable fitness cache.
+Not carried over yet (ROADMAP.md): device meshes (``parallel/mesh.py``).
 
 A deterministic FakeEvaluator over the enumerable 288-genome space stands in
 for training in driver tests.
@@ -30,6 +49,8 @@ for training in driver tests.
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -40,8 +61,14 @@ from ..core.config import TrainConfig
 from ..core.device import resolve_device
 from ..core.genome import HPARAM_SPACE, Genome, genome_key, validate
 from ..models.genome_arch import model_size_mb
-from ..models.supernet import BucketSpec
-from .trainer import PopulationTrainer, TrainSettings, pad_dataset
+from ..models.supernet import BucketSpec, init_population
+from .trainer import (
+    PopulationTrainer,
+    TrainSettings,
+    gather_lanes,
+    pad_dataset,
+    train_key_of,
+)
 
 Fitness = Tuple[float, float, float]  # (acc, size_mb, fpr)
 
@@ -54,14 +81,15 @@ def _next_pow2(n: int) -> int:
 
 
 class PopulationEvaluator:
-    """Evaluates genome populations on one device, one grouped population
-    per launch."""
+    """Evaluates genome populations on one device, one population per
+    launch, with an optional durable fitness cache."""
 
     def __init__(
         self,
         data: Dict[str, np.ndarray],
         train_cfg: TrainConfig,
         device="cuda",
+        fitness_cache_path: Optional[str] = None,
     ):
         # evaluate() reads bucket-key slots 0/1 as (filters, kernel_size) to
         # build the BucketSpec; a reordered/malformed bucket_genes would
@@ -83,6 +111,8 @@ class PopulationEvaluator:
             patience=train_cfg.patience,
             learning_rate=train_cfg.learning_rate,
             restore_best_weights=train_cfg.restore_best_weights,
+            parallel_impl=train_cfg.parallel_impl,
+            compaction_chunk=train_cfg.compaction_chunk,
         )
         # pad once, move to the device once
         xtr, ytr, wtr = pad_dataset(
@@ -99,8 +129,21 @@ class PopulationEvaluator:
                        put(wtr, torch.float32))
         self._val = (put(xval, torch.float32), put(yval, torch.int64),
                      put(wval, torch.float32))
+        # Optional durable (genome, seed) -> fitness cache: completed
+        # trainings survive a mid-generation crash and are replayed on
+        # resume (utils/fitness_cache.py). Fingerprinted against the RAW
+        # (pre-padding) splits, every result-affecting config field and the
+        # device kind.
+        self.fitness_cache = None
+        if fitness_cache_path:
+            from ..utils.fitness_cache import FitnessCache, evaluator_fingerprint
+
+            self.fitness_cache = FitnessCache(
+                fitness_cache_path,
+                evaluator_fingerprint(train_cfg, data, self.device.type),
+            )
         self._eval_count = 0
-        self._launch_count = 0  # population trainings this evaluate()
+        self._launch_count = 0  # training segments run this evaluate()
         self.timings: List[Dict] = []
         # genome -> last observed epochs_ran (stop-epoch packing predictor)
         self._epoch_history: Dict[tuple, float] = {}
@@ -116,6 +159,8 @@ class PopulationEvaluator:
             max_blocks=max_blocks,
         )
 
+    # -- evaluation -----------------------------------------------------------
+
     def evaluate(self, genomes: Sequence[Genome], seed: int = 0) -> List[Fitness]:
         """Evaluate all genomes; returns fitness per genome in input order.
         Genomes sharing a bucket train together in one population."""
@@ -124,13 +169,24 @@ class PopulationEvaluator:
         for g in genomes:
             validate(g)  # out-of-space genomes would silently mis-bucket
         results: List[Optional[Fitness]] = [None] * len(genomes)
+        # replay finished trainings from the durable cache (crash-resume);
+        # idempotence makes the replay behaviorally invisible
+        cached: set = set()
+        if self.fitness_cache is not None:
+            for i, g in enumerate(genomes):
+                hit = self.fitness_cache.get(g, seed)
+                if hit is not None:
+                    results[i] = hit
+                    cached.add(i)
 
         buckets: Dict[tuple, List[int]] = {}
         for i, g in enumerate(genomes):
+            if i in cached:
+                continue
             key = tuple(g[b] for b in self.cfg.bucket_genes)
             buckets.setdefault(key, []).append(i)
 
-        chunk_records = []
+        launches = []
         for bkey, idxs in buckets.items():
             f, k = int(bkey[0]), int(bkey[1])
             sub = [genomes[i] for i in idxs]
@@ -162,33 +218,92 @@ class PopulationEvaluator:
                 spec = self._bucket_spec(
                     f, k, max(int(g["residual_blocks"]) for g in chunk)
                 )
-                fits = self._run_bucket(spec, padded, seed)
-                for j, gi in enumerate(chunk_idx):
-                    g = genomes[gi]
-                    size = model_size_mb(g, self.cfg.num_classes, self.cfg.template)
-                    results[gi] = (float(fits["acc"][j]), size,
-                                   float(fits["fpr"][j]))
-                    self._epoch_history[genome_key(g)] = float(fits["epochs"][j])
-                chunk_records.append({
-                    "filters": spec.filters,
-                    "kernel": spec.kernel,
-                    "max_blocks": spec.max_blocks,
-                    "pop": len(padded),
-                    "epochs": [int(e) for e in fits["epochs"]],
-                })
+                launches.append((chunk_idx, spec, padded))
+        # one-shot launches first, compacted ones last (the JAX package's
+        # order; a stable sort keeps the bucket order within each group)
+        launches.sort(
+            key=lambda t: self._effective_chunk(len(t[2])) > 0
+        )
+        log_launches = os.environ.get("CMOOP_LOG_LAUNCHES", "0") == "1"
+        chunk_records = []
+        for n, (chunk_idx, spec, padded) in enumerate(launches):
+            if log_launches:
+                print(
+                    f"[launch {n+1}/{len(launches)}] f={spec.filters} "
+                    f"k={spec.kernel} blocks={spec.max_blocks} "
+                    f"pop={len(padded)} start t+{time.perf_counter()-t0:.1f}s",
+                    file=sys.stderr, flush=True,
+                )
+            fits = self._run_bucket(spec, padded, seed)
+            for j, gi in enumerate(chunk_idx):
+                g = genomes[gi]
+                size = model_size_mb(g, self.cfg.num_classes, self.cfg.template)
+                results[gi] = (float(fits["acc"][j]), size,
+                               float(fits["fpr"][j]))
+                self._epoch_history[genome_key(g)] = float(fits["epochs"][j])
+            # durable per launch: a crash in a later launch loses nothing
+            # of this one
+            if self.fitness_cache is not None:
+                self.fitness_cache.put_many(
+                    [(genomes[gi], seed, results[gi]) for gi in chunk_idx]
+                )
+            pop = len(padded)
+            chunk_records.append({
+                "filters": spec.filters,
+                "kernel": spec.kernel,
+                "max_blocks": spec.max_blocks,
+                "pop": pop,
+                "compacted": self._effective_chunk(pop) > 0,
+                "epochs": [int(e) for e in fits["epochs"]],
+                # lanes of each training segment: one entry for a one-shot
+                # launch, falling where compaction dropped stopped lanes
+                "lanes": list(fits["lanes"]),
+            })
+            if log_launches:
+                print(
+                    f"[launch {n+1}/{len(launches)}] done "
+                    f"t+{time.perf_counter()-t0:.1f}s",
+                    file=sys.stderr, flush=True,
+                )
         self.timings.append(
             {
                 "n_genomes": len(genomes),
                 "n_buckets": len(buckets),
                 "launches": self._launch_count,
                 "seconds": time.perf_counter() - t0,
+                "cache_hits": len(cached),
                 # per-launch execution shape for FLOPs accounting: lockstep
                 # bills every (padded) lane until the slowest stops
                 "chunks": chunk_records,
             }
         )
-        self._eval_count += len(genomes)
+        # trainings actually performed (cache replays are not true evals)
+        self._eval_count += len(genomes) - len(cached)
         return results  # type: ignore[return-value]
+
+    # -- the launch policy ----------------------------------------------------
+
+    def _effective_chunk(self, pop: int) -> int:
+        """Resolve ``TrainConfig.compaction_chunk`` for a launch of ``pop``
+        padded lanes. -1 = adaptive: lane compaction pays only when enough
+        lanes can be dropped (pop >= 8) and the epoch budget dwarfs the
+        chunk quantum; 2*patience epochs (at least 10) between compactions
+        let stopping decisions settle. An explicit non-negative
+        ``compaction_chunk`` is honored verbatim (0 = always one-shot).
+        Chunk boundaries alone leave the results bit for bit; dropping
+        lanes changes the population's group count, which on CUDA runs
+        other kernels (chip_smoke.py's planner phase measures the drift)."""
+        chunk = self.settings.compaction_chunk
+        if chunk >= 0:
+            return chunk
+        if (
+            pop >= 8
+            and self.settings.epochs >= 8 * max(self.settings.patience, 1)
+        ):
+            return max(2 * self.settings.patience, 10)
+        return 0
+
+    # -- launches -------------------------------------------------------------
 
     def run_single_with_params(self, genome: Genome, seed: int):
         """One-genome training that RETURNS the trained carry — the
@@ -206,16 +321,74 @@ class PopulationEvaluator:
                                 self.settings.epochs)
 
     def _run_bucket(self, spec: BucketSpec, padded: List[Genome], seed: int):
-        trainer = PopulationTrainer(spec, self.settings, self.cfg.num_classes)
-        out, _ = trainer.run_full(padded, self._train, self._val, seed,
-                                  self.settings.epochs)
-        self._launch_count += 1
+        """Train one launch's (padded) population: in one segment, or in
+        chunks with lane compaction. Returns per-lane numpy ``acc``,
+        ``fpr`` and ``epochs`` and the ``lanes`` of each segment."""
+        pop = len(padded)
         acc_key = "acc_eval" if self.cfg.accuracy_from == "best" else "acc_last"
-        return {
-            "acc": out[acc_key].cpu().numpy(),
-            "fpr": out["fpr"].cpu().numpy(),
-            "epochs": out["epochs_ran"].cpu().numpy(),
-        }
+        trainer = PopulationTrainer(spec, self.settings, self.cfg.num_classes)
+        cap = self.settings.epochs
+        chunk = self._effective_chunk(pop)
+        if chunk <= 0:
+            out, _ = trainer.run_full(padded, self._train, self._val, seed, cap)
+            self._launch_count += 1
+            return {
+                "acc": out[acc_key].cpu().numpy(),
+                "fpr": out["fpr"].cpu().numpy(),
+                "epochs": out["epochs_ran"].cpu().numpy(),
+                "lanes": [pop],
+            }
+
+        # Chunked training with lane compaction: between chunks, lanes whose
+        # models early-stopped are finalized and dropped, and the survivors
+        # go on as a population of the next power of two — lockstep training
+        # otherwise bills every lane for the SLOWEST model's epochs. The
+        # shuffle and dropout streams are keyed by global epoch and genome
+        # uid, so chunk boundaries and lane positions do not show in the
+        # results (bit for bit on the CPU).
+        params, state, flags = init_population(seed, spec, padded,
+                                               self.device)
+        carry = trainer.init_carry(params, state, flags)
+        train_key = train_key_of(seed)
+        lane_map = list(range(pop))  # current lane -> original padded index
+        acc = np.zeros(pop)
+        fpr = np.zeros(pop)
+        epochs = np.zeros(pop, np.int32)
+        lanes = []
+
+        def record(out, lane_ids):
+            for li in lane_ids:
+                oi = lane_map[li]
+                if oi < 0:  # compaction padding lane
+                    continue
+                acc[oi] = out[acc_key][li]
+                fpr[oi] = out["fpr"][li]
+                epochs[oi] = out["epochs_ran"][li]
+
+        def final(c):
+            return {k: v.cpu().numpy() for k, v in
+                    trainer.finalize(c, self._val).items()}
+
+        while True:
+            lanes.append(len(lane_map))
+            carry = trainer.run_chunk(carry, self._train, self._val,
+                                      train_key,
+                                      min(carry["epoch"] + chunk, cap))
+            self._launch_count += 1
+            stopped = carry["stopped"].cpu().numpy()
+            if stopped.all() or carry["epoch"] >= cap:
+                record(final(carry), range(len(lane_map)))
+                break
+            active = np.nonzero(~stopped)[0]
+            target_pop = _next_pow2(len(active))
+            if target_pop <= len(lane_map) // 2:
+                record(final(carry), np.nonzero(stopped)[0])
+                keep = list(active) + [int(active[0])] * (
+                    target_pop - len(active))
+                carry = gather_lanes(carry, keep)
+                lane_map = [lane_map[i] for i in active] + [-1] * (
+                    target_pop - len(active))
+        return {"acc": acc, "fpr": fpr, "epochs": epochs, "lanes": lanes}
 
     @property
     def total_true_evals(self) -> int:

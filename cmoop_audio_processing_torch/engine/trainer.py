@@ -14,9 +14,10 @@ nsga_penalty.py:368-395):
 Shape of the loop (cmoop_audio_processing_tpu/engine/trainer.py):
 
 * each epoch walks the shuffled train set in mini-batches; one forward of
-  the grouped population network (models/grouped.py) and one backward
-  serve every lane, since the summed per-lane losses have disjoint
-  parameters;
+  the grouped population network (models/grouped.py, or with
+  ``parallel_impl="vmap"`` the single-model forward mapped over the lanes
+  by ``torch.func.vmap``) and one backward serve every lane, since the
+  summed per-lane losses have disjoint parameters;
 * Adam runs per lane with a per-lane step count. Early stopping is
   per-lane masking: a stopped lane keeps its parameters, BN state and Adam
   moments frozen (a stock ``torch.optim.Adam`` would still advance them);
@@ -48,7 +49,13 @@ import torch.nn.functional as F
 
 from ..core.rng import fold_in, seed_key
 from ..models.grouped import apply_population
-from ..models.supernet import BucketSpec, init_population, tree_leaves, tree_map
+from ..models.supernet import (
+    BucketSpec,
+    apply_model,
+    init_population,
+    tree_leaves,
+    tree_map,
+)
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -63,6 +70,14 @@ class TrainSettings:
     adam_eps: float = 1e-7  # keras Adam default epsilon
     restore_best_weights: bool = True
     eval_batch_size: int = 256
+    # Population forward: "grouped" runs the population as one grouped
+    # network (models/grouped.py); "vmap" maps the single-model
+    # ``supernet.apply_model`` over the lanes with ``torch.func.vmap``, the
+    # JAX package's semantic reference. Both give each lane its own model.
+    parallel_impl: str = "grouped"
+    # Epochs per ``run_chunk`` call before the evaluator may compact
+    # early-stopped lanes into a smaller population; 0 = one-shot.
+    compaction_chunk: int = 0
 
 
 def pad_dataset(x: np.ndarray, y: np.ndarray, batch_size: int):
@@ -122,13 +137,29 @@ def _lane_where(mask: torch.Tensor, a: Dict, b: Dict) -> Dict:
     return tree_map(sel, a, b)
 
 
+def gather_lanes(carry: Dict, lane_idx) -> Dict:
+    """Compact a training carry to the given lanes: every tensor leaf
+    (params, BN state, Adam moments and step counts, flags, the best-params
+    snapshot, best loss, wait, stopped, the last-epoch metrics) carries a
+    leading pop axis; the epoch counter is a Python int and stays."""
+    def take(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return x.index_select(0, torch.as_tensor(lane_idx, device=x.device))
+
+    return tree_map(take, carry)
+
+
 class PopulationTrainer:
     """Population training for one bucket spec.
 
-    ``run_full`` is the evaluator's path: genome-keyed population init, the
-    epoch loop to the cap (or until every lane stopped) and the final
-    metrics. ``init_carry``/``run_chunk``/``finalize`` are the pieces, and
-    ``train`` the params-in convenience the trainer-level tests use."""
+    ``run_full`` is the evaluator's one-shot path: genome-keyed population
+    init, the epoch loop to the cap (or until every lane stopped) and the
+    final metrics. ``init_carry``/``run_chunk``/``finalize`` are the
+    pieces, which the evaluator also drives chunk by chunk to compact
+    early-stopped lanes away (``gather_lanes``); nothing here depends on
+    the lane count. ``train`` is the params-in convenience the
+    trainer-level tests use."""
 
     def __init__(self, spec: BucketSpec, settings: TrainSettings,
                  num_classes: int):
@@ -138,12 +169,27 @@ class PopulationTrainer:
 
     # -- pieces ---------------------------------------------------------------
 
+    def forward(self, params, state, flags, x, *, train: bool,
+                dropout_key=None):
+        """(P, B, C) logits and the new BN state of the whole population,
+        through the forward ``settings.parallel_impl`` names. Under "vmap"
+        each lane runs ``apply_model`` on its own params, BN state and
+        flags; the step key is shared and every model folds its own uid
+        into it, as the grouped forward does per lane."""
+        if self.settings.parallel_impl == "vmap":
+            def one(p, s, f):
+                return apply_model(self.spec, p, s, f, x, train=train,
+                                   dropout_key=dropout_key)
+
+            return torch.func.vmap(one)(params, state, flags)
+        return apply_population(self.spec, params, state, flags, x,
+                                train=train, dropout_key=dropout_key)
+
     def pop_loss(self, params, state, flags, xb, yb, wb, dkey):
         """Summed per-model weighted CE (the gradient of the sum is each
         model's own gradient) and the new BN state."""
-        logits, new_state = apply_population(
-            self.spec, params, state, flags, xb, train=True, dropout_key=dkey
-        )
+        logits, new_state = self.forward(params, state, flags, xb, train=True,
+                                         dropout_key=dkey)
         ce = cross_entropy(logits, yb.expand(logits.shape[:-1]))
         wsum = torch.clamp(wb.sum(), min=1.0)
         per_model = (ce * wb).sum(dim=1) / wsum
@@ -216,8 +262,7 @@ class PopulationTrainer:
         cms = torch.zeros(p, self.num_classes, self.num_classes, device=dev)
         for start in range(0, xval.shape[0], eb):
             xb, yb, wb = (a[start:start + eb] for a in (xval, yval, wval))
-            logits, _ = apply_population(self.spec, params, state, flags, xb,
-                                         train=False)
+            logits, _ = self.forward(params, state, flags, xb, train=False)
             ce = cross_entropy(logits, yb.expand(logits.shape[:-1]))
             preds = torch.argmax(logits, dim=-1)
             loss_sum += (ce * wb).sum(dim=1)

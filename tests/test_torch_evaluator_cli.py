@@ -186,9 +186,10 @@ def _check_real_run(tmp_path, extra):
     assert jcli.main(["--preset", "nsga_penalty", "--fake-eval", "--pop-size",
                       "4", "--max-gen", "2", "--out", str(jout)]) == 0
     tdir, jdir = out / "nsga_penalty", jout / "nsga_penalty"
-    # the same artifact set as the JAX CLI (which adds its fitness cache
-    # only on real runs)
-    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    # the JAX CLI's artifact set, plus the fitness cache that every real
+    # run keeps (the JAX CLI's --fake-eval run writes none)
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir)
+                                              + ["fitness_cache.jsonl"])
     for name in ("all_generations.csv", "final_pareto.csv"):
         header = (tdir / name).read_text().splitlines()[:1]
         want = (jdir / name).read_text().splitlines()[:1]
@@ -211,21 +212,55 @@ def test_real_cpu_run_on_default_synthetic_data(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--preset", "sa_nsga_penalty", "--launch-budget", "5"],
-    ["--preset", "mobo_penalty", "--launch-budget", "5"],
     ["--preset", "nsga_penalty", "--mesh", "2"],
-    ["--preset", "nsga_penalty", "--fitness-cache", "cache.jsonl"],
-    ["--preset", "nsga_penalty", "--compaction-chunk", "4"],
     ["--preset", "nsga_penalty", "--launch-budget", "5"],
-    ["--preset", "nsga_penalty", "--parallel-impl", "vmap"],
-], ids=["sa_nsga2", "mobo", "mesh", "fitness_cache", "compaction",
-        "launch_budget", "vmap"])
+], ids=["mesh", "launch_budget"])
 def test_options_the_port_does_not_carry_exit_naming_the_roadmap(extra):
-    """The sa_nsga2 and mobo presets run (tests/test_torch_sa_nsga2.py,
-    tests/test_torch_mobo.py); an option the port does not carry still
-    exits for them."""
+    """The mesh and the launch-duration bound are out of the port: their
+    options exit naming ROADMAP.md."""
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         tcli.main(extra + ["--fake-eval", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--preset", "sa_nsga_penalty", "--compaction-chunk", "0", "--pop-size",
+     "6"],
+    ["--preset", "mobo_penalty", "--parallel-impl", "vmap"],
+    ["--preset", "nsga_penalty", "--compaction-chunk", "4"],
+    ["--preset", "nsga_penalty", "--parallel-impl", "vmap"],
+], ids=["sa_nsga2", "mobo", "compaction", "vmap"])
+def test_planner_options_run(tmp_path, monkeypatch, extra):
+    """The launch-planner options run with every kind of preset and reach
+    the run's TrainConfig as in the JAX CLI."""
+    seen = []
+    make = tcli.make_evaluator
+
+    def spy(cfg, *args, **kw):
+        seen.append(cfg.train)
+        return make(cfg, *args, **kw)
+
+    monkeypatch.setattr(tcli, "make_evaluator", spy)
+    args = extra + ["--fake-eval", "--device", "cpu", "--max-gen", "1",
+                    "--out", str(tmp_path)]
+    assert tcli.main(args) == 0
+    want = jcli.config_from_args(jcli.build_parser().parse_args(
+        extra + ["--out", str(tmp_path)])).train
+    assert dataclasses.asdict(seen[0]) == dataclasses.asdict(want)
+
+
+def test_fitness_cache_path_with_fake_eval_exits_as_in_the_jax_cli(tmp_path):
+    """The closed-form evaluator records nothing: an explicit cache path
+    exits with the JAX CLI's message and leaves the file alone."""
+    cache = tmp_path / "cache.jsonl"
+    cache.write_text("kept\n")
+    args = ["--preset", "nsga_penalty", "--fitness-cache", str(cache),
+            "--fake-eval", "--max-gen", "1", "--out", str(tmp_path)]
+    with pytest.raises(SystemExit, match="real evaluator") as jax_exit:
+        jcli.main(args)
+    with pytest.raises(SystemExit, match="real evaluator") as port_exit:
+        tcli.main(args + ["--device", "cpu"])
+    assert str(port_exit.value) == str(jax_exit.value)
+    assert cache.read_text() == "kept\n"
 
 
 @pytest.mark.parametrize("preset", sorted(

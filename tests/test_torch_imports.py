@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of it, and none of the scripts
 that run it on the card (chip_smoke.py, profile_torch.py,
-kernel_variants.py), imports JAX, optax or the JAX package; pandas, sklearn and h5py are
+kernel_variants.py, planner_drift.py), imports JAX, optax or the JAX package; pandas, sklearn and h5py are
 imported only inside functions off the main path, so the main path runs on
 a machine that has none of them."""
 
@@ -20,7 +20,8 @@ LAZY_ONLY = {"pandas", "sklearn", "h5py"}
 
 def _sources():
     paths = [os.path.join(ROOT, f) for f in
-             ("chip_smoke.py", "profile_torch.py", "kernel_variants.py")]
+             ("chip_smoke.py", "profile_torch.py", "kernel_variants.py",
+              "planner_drift.py")]
     for d, _, files in os.walk(PORT):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -60,9 +61,10 @@ def test_no_jax_and_lazy_only_heavy_imports(path):
 def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
     """Every module of both paths imports, and both CPU paths complete, with
     the optional packages and JAX made unimportable: KWS (MFCC extraction,
-    npy split, a tiny real NSGA-II run) and BirdCLEF (the extraction CLI on
-    a tiny wav tree with --kind log_mel, then a tiny real sa_nsga_penalty
-    run with its GP fits)."""
+    npy split, a tiny real NSGA-II run with lane compaction and the vmap
+    forward) and BirdCLEF (the extraction CLI on a tiny wav tree with
+    --kind log_mel, then a tiny real sa_nsga_penalty run with its GP fits);
+    each real run keeps its fitness cache."""
     script = textwrap.dedent(f"""
         import importlib, os, sys
         BLOCKED = {sorted(LAZY_ONLY | FORBIDDEN)!r}
@@ -86,6 +88,7 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
                   "algorithms.initializers", "surrogate.gp",
                   "surrogate.kernels", "surrogate.manager",
                   "utils.reporting", "utils.xlsx", "utils.checkpoint",
+                  "utils.fitness_cache",
                   "core.rng"):
             importlib.import_module("cmoop_audio_processing_torch." + m)
         from cmoop_audio_processing_torch.cli import extract_features
@@ -112,6 +115,7 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
                      "--data-path", {str(tmp_path / "npy")!r},
                      "--device", "cpu", "--compute-dtype", "float32",
                      "--pop-size", "2", "--max-gen", "1", "--epochs", "1",
+                     "--compaction-chunk", "1", "--parallel-impl", "vmap",
                      "--out", {str(tmp_path / "out")!r}]) == 0
 
         wav_dir = {str(tmp_path / "bird_wavs")!r}
@@ -146,6 +150,7 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
         assert (run_dir / "all_generations.csv").exists()
         assert (run_dir / "all_generations.xlsx").exists()
         assert (run_dir / final).exists()
+        assert (run_dir / "fitness_cache.jsonl").exists()
 
 
 def test_mobo_export_and_compare_run_with_pandas_sklearn_h5py_and_jax_blocked(
