@@ -9,7 +9,8 @@
   npy split -> template-B population trainer -> GP-surrogate SA-NSGA-II
   (``sa_nsga_penalty``) front;
 * the evaluator's launch planner on both splits: lane compaction, the vmap
-  forward, fitness-cache replay, the card's executed training FLOP rate.
+  setting, fitness-cache replay, the card's executed training FLOP rate;
+* the device mesh on the one card: pop shards and data shards.
 
     python3 chip_smoke.py [--seed N]
 
@@ -66,19 +67,30 @@ Phases (any failure exits non-zero; nothing is caught):
              artifacts, with a front of at least one feasible genome;
 12. planner — 8 genomes of one (64, 5) bucket, mixed depth, BN and dropout,
              on phase 3's split in bf16 (12 epochs, patience 2): one-shot,
-             compacted every 3 epochs (twice), the vmap forward one-shot,
+             compacted every 3 epochs (twice), the vmap setting one-shot,
              and a fresh evaluator on the compacted run's fitness cache.
              The compacted run must really compact, repeat bit for bit
              and agree with the one-shot run within ``patience`` epochs and
              one validation sample; the replay must return its fitness bit
-             for bit and train nothing (the vmap run's drift from the
-             one-shot run is printed). Then the executed training FLOP rate
+             for bit and train nothing; the vmap run must equal the
+             one-shot run bit for bit. Then the executed training FLOP rate
              at KWS and at BirdCLEF 501x40 (phase 9's split, 1 and 2
-             lanes, 2 epochs). Last, the vmap forward against the grouped
+             lanes, 2 epochs). Last, the vmap setting against the grouped
              one from the same params and BN state, initial and after each
-             of 3 epochs of grouped bf16 training: a training step's
-             logits and BN state and a validation pass's metrics must be
-             bit for bit, its gradients within 2^-6.
+             of 3 epochs of grouped training, in f32 and bf16: a training
+             step's logits, BN state and gradients and a validation pass's
+             metrics must be bit for bit;
+13. mesh   — the device mesh in a world of one process, on phase 3's split
+             at full width, 3 epochs: ``--mesh 1`` through the CLI against
+             the same run without a mesh, one-shot, bit for bit; the
+             planner's genomes on a (4, 1) mesh over ``[cuda:0] * 4`` in
+             bf16 bit for bit against the no-mesh run whose launches hold
+             2 lanes, and repeating itself; on a (2, 2) mesh in f32 (batch
+             rows split, BN and gradients over the global batch), one step
+             and one validation pass at a time split by the mesh's own
+             placement against the unsplit population, by the JAX
+             package's bounds. Each run's seconds and its drift from the
+             8-lane no-mesh run are printed.
 
 Launch counts are zeroed just before each path (phase 3, phase 6, phase 9)
 and read just after it (phase 5, phase 8, phase 11): each kernel of a path
@@ -815,19 +827,13 @@ PLANNER_CHUNK = 3
 PLANNER_LR = 2e-3
 VMAP_EPOCHS = 3
 # Bounds on a vmap step against the grouped step from the same state
-# (``vmap_step``): the two run other kernels, whose sums round in another
-# order, and a backward pass magnifies that (flipped max-pool and ReLU
-# choices among them). Each bound is 5-40x the card's reading at the state
-# where it is largest (PERF.md): logits 1.6e-6 (f32) and 2.8e-3 (bf16) of
-# the largest logit; BN state 7.4e-8 and 2.8e-5; gradients, by the norm of
-# their difference, 3.9e-3 and 4.6e-2 from the initial state (1e-5-3e-5
-# and 1e-4-3e-3 from trained ones); validation loss 0 and 1.6e-6; accuracy
-# and FPR equal. Accuracies are held within one validation sample.
+# (``vmap_step``): the vmap setting runs the grouped forward
+# (engine/trainer.py), so every reading is 0 on the card, in f32 and bf16,
+# from the initial and trained states (PERF.md): logits, BN state,
+# gradients, validation loss, accuracy and FPR bit for bit.
 VMAP_BOUNDS = {
-    "float32": {"logits": 1e-5, "state": 1e-6, "grads": 2e-2,
-                "val_loss": 1e-6},
-    "bfloat16": {"logits": 2.0 ** -5, "state": 2.0 ** -12, "grads": 2.0 ** -2,
-                 "val_loss": 2.0 ** -14},
+    "float32": {"logits": 0.0, "state": 0.0, "grads": 0.0, "val_loss": 0.0},
+    "bfloat16": {"logits": 0.0, "state": 0.0, "grads": 0.0, "val_loss": 0.0},
 }
 
 
@@ -849,14 +855,14 @@ def epoch_flops(ev, pop: int, spec) -> float:
 def phase_planner(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
     """The launch planner on the card, at full width on the KWS split, in
     bf16: (a) one-shot, (b) compacted every 3 epochs, (c) (b) again, (d) the
-    vmap forward one-shot, (e) a fresh evaluator on (b)'s fitness cache.
+    vmap setting one-shot, (e) a fresh evaluator on (b)'s fitness cache.
     Gates: (b) really compacted; (c) equals (b) and (e) returns (b)'s
     fitness bit for bit, (e) training nothing; (b) agrees with (a) bit for
     bit or, failing that, within ``patience`` epochs and one validation
-    sample. How far (b) and (d) drift from (a) over the whole run is
-    printed. Then the executed training FLOP rate at KWS and at BirdCLEF
+    sample; (d) equals (a) bit for bit. How far (b) and (d) drift from (a)
+    over the whole run is printed. Then the executed training FLOP rate at KWS and at BirdCLEF
     501x40 (one population, 2 epochs, 1 lane and 2 lanes). Last, the vmap
-    forward against the grouped one, from the initial state and from
+    setting against the grouped one, from the initial state and from
     trained ones (``vmap_steps``)."""
     import dataclasses
 
@@ -926,22 +932,19 @@ def phase_planner(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
             f"{max(d_acc)!r} (one validation sample {1 / n_val!r}), |d fpr| "
             f"{max(d_fpr)!r}; {held}; epochs_ran {ep}")
         # (b) runs (a)'s very steps until its first compaction, so only the
-        # epochs after it can drift: it is held to the bound. (d) differs
-        # from the first backward on (other kernels sum the gradients in
-        # another order), and a 12-epoch run that stops on val-loss noise
-        # amplifies that far past the bound (PERF.md); it is held a step at
-        # a time from the same states instead (vmap_steps)
+        # epochs after it can drift: it is held to the bound. (d) runs
+        # (a)'s forward: bit for bit
         if tag == "b" and not within:
             raise AssertionError(f"({tag}) off (a) beyond the bound: epochs "
                                  f"{ep} vs {ep_a}, fitness {fits} vs {fits_a}")
-    assert all(abs(v) < float("inf") and 0.0 <= f[0] <= 1.0
-               for f in fits_d for v in f), fits_d
-    assert all(e >= 1 for e in ep_d), ep_d
+        if tag == "d" and (fits, ep) != (fits_a, ep_a):
+            raise AssertionError(f"(d) differs from (a): epochs {ep} vs "
+                                 f"{ep_a}, fitness {fits} vs {fits_a}")
     log(f"[planner] epochs_ran (a) {ep_a}; accuracy (a) "
         f"{[round(f[0], 4) for f in fits_a]}")
     planner_rates(device, ev_a, secs_a, bird_dir)
 
-    # the vmap forward against the grouped one from the same states: the
+    # the vmap setting against the grouped one from the same states: the
     # initial params and those after each of VMAP_EPOCHS epochs of grouped
     # training, with dropout and no lane stopping, in both compute dtypes
     t0 = time.perf_counter()
@@ -949,9 +952,8 @@ def phase_planner(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
         for epoch, m in enumerate(vmap_steps(device, ev_a, dtype)):
             log(f"[planner] vmap against grouped, {dtype}, after {epoch} "
                 f"epochs of grouped training: {m}")
-            off = [k for k, b in bounds.items() if b is not None and m[k] > b]
-            if m["val_acc"] > 1.0 / n_val + 1e-6:
-                off.append("val_acc")
+            off = [k for k, b in bounds.items() if m[k] > b]
+            off += [k for k in ("grads_max", "val_acc", "val_fpr") if m[k]]
             if off:
                 raise AssertionError(f"a vmap step off the grouped one in "
                                      f"{off} after {epoch} epochs ({dtype}): "
@@ -962,7 +964,7 @@ def phase_planner(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
 def vmap_step(device: str, ev, dtype: str, carry=None) -> dict:
     """One training step of the planner's population on the first 64 rows
     of ``ev``'s padded training split, and one validation pass over its
-    padded validation split, through the vmap forward and the grouped one,
+    padded validation split, through the vmap setting and the grouped one,
     from the same params and BN state: ``carry``'s, or the initial ones.
     Returns the largest difference of the step's logits, of its new BN
     state and of the lanes' validation losses, each relative to the
@@ -1071,6 +1073,248 @@ def planner_rates(device: str, kws_ev, kws_secs: float, bird_dir: str) -> None:
             f"of {len(bird['y_train'])} rows)")
 
 
+MESH_EPOCHS = 3
+MESH_LANES_BOUND = 2  # at most 2 genomes differ (the compaction bound)
+
+
+def _cache_results(path: str) -> list:
+    """A fitness cache's result lines in order, its fingerprint dropped."""
+    with open(path) as f:
+        return [json.loads(line) for line in f][1:]
+
+
+def _fit_diff(fits, ref, ep, ep_ref, n_val: int):
+    """(genomes differing, largest |d epochs|, largest |d acc|, within
+    the compaction bound)."""
+    d_acc = [abs(x[0] - y[0]) for x, y in zip(fits, ref)]
+    d_ep = [abs(x - y) for x, y in zip(ep, ep_ref)]
+    n_diff = sum(1 for a, e in zip(d_acc, d_ep) if a or e)
+    within = (n_diff <= MESH_LANES_BOUND and max(d_ep) <= PLANNER_PATIENCE
+              and max(d_acc) <= 1.0 / n_val + 1e-6)
+    return n_diff, max(d_ep), max(d_acc), within
+
+
+def phase_mesh(device: str, data_dir: str, smi: str) -> None:
+    """The device mesh (parallel/mesh.py) on the one card, in a world of
+    one process, on the KWS split at full width, 3 epochs:
+
+    (a) ``--mesh 1`` through the CLI (nsga_penalty, pop 4, one generation,
+        bf16) against the same run without a mesh with
+        ``--compaction-chunk 0``: the same launch plan, so the fitness cache
+        lines must be equal bit for bit;
+    (b) the planner's 8 genomes on a (4, 1) mesh over ``[cuda:0] * 4`` (2
+        lanes a pop shard) in bf16, against the no-mesh run whose launches
+        hold 2 lanes in the same genome order (``max_models_per_program``
+        2): the same kernels at the same shapes, so bit for bit; then again,
+        bit for bit. Its drift from the 8-lane no-mesh run is printed, not
+        gated: cuDNN runs other kernels at 2 groups than at 8, and over 3
+        epochs at lr 2e-3, with the best epoch restored, their rounding
+        moves a genome's validation accuracy by tens of samples (PERF.md);
+    (c) a (2, 2) mesh over ``[cuda:0] * 4`` in f32 (each batch's rows split
+        over two entries, BN statistics and gradients over the global
+        batch) against the no-mesh run in f32: the whole run is printed,
+        not gated, for the same reason (its batches are half as tall).
+        Instead one training step and one validation pass at a time, from
+        the same states (the initial ones and after one epoch), placed by
+        the mesh's own helpers, are held against the unsplit population by
+        the JAX package's bounds (tests/test_parallel.py): validation
+        accuracy and FPR within rtol 2e-4, logits within 5e-3, equal argmax
+        on decisive samples (``mesh_steps``)."""
+    import dataclasses
+
+    import torch
+
+    from cmoop_audio_processing_torch.cli.main import main as cli_main
+    from cmoop_audio_processing_torch.core.config import DataConfig, TrainConfig
+    from cmoop_audio_processing_torch.core.genome import genome_key
+    from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
+    from cmoop_audio_processing_torch.engine.evaluator import PopulationEvaluator
+    from cmoop_audio_processing_torch.parallel.mesh import population_mesh
+
+    log(f"[mesh] card: {smi}")
+    t_phase = time.perf_counter()
+    # (a) the CLI with --mesh 1 against no mesh, one-shot
+    caches = []
+    for tag, extra in (("mesh 1", ["--mesh", "1"]),
+                       ("no mesh", ["--compaction-chunk", "0"])):
+        out = os.path.join(WORK, "mesh_cli", tag.replace(" ", "_"))
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        assert cli_main([
+            "--preset", "nsga_penalty", "--source", "npy", "--data-path",
+            data_dir, "--device", device, "--max-gen", "1", "--pop-size", "4",
+            "--epochs", str(MESH_EPOCHS), "--seed", "3", "--out", out,
+        ] + extra) == 0
+        caches.append(_cache_results(
+            os.path.join(out, "nsga_penalty", "fitness_cache.jsonl")))
+        log(f"[mesh] (a) CLI {tag}: {len(caches[-1])} trainings, "
+            f"{time.perf_counter() - t0:.2f} s")
+    if caches[0] != caches[1] or not caches[0]:
+        raise AssertionError(f"(a) --mesh 1 differs from no mesh: "
+                             f"{caches[0]} vs {caches[1]}")
+    log("[mesh] (a) --mesh 1 equals no mesh, one-shot, bit for bit")
+
+    data = prepare_dataset(DataConfig(source="npy", path=data_dir,
+                                      num_classes=CLASSES))
+    n_val = len(data["y_val"])
+    cuda4 = [torch.device(device)] * 4
+
+    def run(tag, cfg, mesh=None):
+        ev = PopulationEvaluator(data, cfg, device=device, mesh=mesh)
+        t0 = time.perf_counter()
+        fits = ev.evaluate(PLANNER_GENOMES, seed=5)
+        secs = time.perf_counter() - t0
+        epochs = [ev._epoch_history.get(genome_key(g)) for g in PLANNER_GENOMES]
+        log(f"[mesh] ({tag}) {secs:.2f} s; {ev.timings[-1]['launches']} "
+            f"launches; epochs_ran {epochs}")
+        return ev, fits, epochs
+
+    def against(tag, got, ref):
+        n_diff, d_ep, d_acc, within = _fit_diff(got[1], ref[1], got[2],
+                                                ref[2], n_val)
+        log(f"[mesh] ({tag}) against no mesh: {n_diff} of "
+            f"{len(PLANNER_GENOMES)} genomes differ; largest |d epochs| "
+            f"{d_ep}, |d acc| {d_acc!r} (one validation sample "
+            f"{1 / n_val!r}); "
+            + ("bit for bit" if got[1:] == ref[1:] else
+               "within the bound" if within else "beyond the bound"))
+        return within
+
+    # (b) a (4, 1) mesh on one card against the no-mesh run of 2-lane
+    # launches, bit for bit, and against itself
+    bf16 = TrainConfig(epochs=MESH_EPOCHS, patience=PLANNER_PATIENCE,
+                       learning_rate=PLANNER_LR, compute_dtype="bfloat16",
+                       compaction_chunk=0,
+                       bucket_genes=("filters", "kernel_size"))
+    ref_bf16 = run("b: no mesh, bf16", bf16)
+    ref_2 = run("b: no mesh, 2-lane launches, bf16",
+                dataclasses.replace(bf16, max_models_per_program=2))
+    b_bf16 = run("b: (4, 1) mesh, bf16", bf16, population_mesh(4, 1, cuda4))
+    b_again = run("b: (4, 1) mesh, bf16, again", bf16,
+                  population_mesh(4, 1, cuda4))
+    against("b: 2-lane launches against 8, printed", ref_2, ref_bf16)
+    against("b: mesh against 8-lane launches, printed", b_bf16, ref_bf16)
+    if b_bf16[1:] != ref_2[1:]:
+        raise AssertionError(f"(b) the (4, 1) mesh differs from the 2-lane "
+                             f"no-mesh run: {b_bf16[1:]} vs {ref_2[1:]}")
+    if b_again[1:] != b_bf16[1:]:
+        raise AssertionError(f"(b) bf16 does not repeat: {b_again[1:]} vs "
+                             f"{b_bf16[1:]}")
+    log("[mesh] (b) the (4, 1) mesh equals the 2-lane no-mesh run and "
+        "itself, bit for bit")
+    # (c) a (2, 2) mesh in f32: the whole run printed, steps held
+    f32 = dataclasses.replace(bf16, compute_dtype="float32")
+    ref_f32 = run("c: no mesh, f32", f32)
+    c = run("c: (2, 2) mesh, f32", f32, population_mesh(2, 2, cuda4))
+    assert c[0].settings.parallel_impl == "vmap"
+    assert [f[1] for f in c[1]] == [f[1] for f in ref_f32[1]]
+    against("c: whole run, printed", c, ref_f32)
+
+    t0 = time.perf_counter()
+    mesh = population_mesh(2, 2, cuda4)
+    for epoch, m in enumerate(mesh_steps(device, ref_f32[0], mesh)):
+        log(f"[mesh] (c) a (2, 2) step against no mesh after {epoch} "
+            f"epochs: {m}")
+        if not (m["acc_fpr_rel"] <= 2e-4 and m["logits"] <= 5e-3
+                and m["argmax_flips"] == 0):
+            raise AssertionError(f"(c) off the JAX bounds after {epoch} "
+                                 f"epochs: {m}")
+    log(f"[mesh] steps {time.perf_counter() - t0:.2f} s; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+
+def mesh_steps(device: str, ev, mesh):
+    """The planner's population in f32 split as ``mesh`` splits it
+    (``shard_population``; each pop shard's batches over its data devices
+    through ``SplitData``), against the unsplit population, from the same
+    params and BN state: the initial ones, then after one epoch of
+    unsplit training. For each, one training step on the first 64
+    training rows (logits, BN state, gradients) and one validation pass
+    (accuracy, FPR, the lanes' logits on the validation rows); yields the
+    largest differences."""
+    import torch
+
+    from cmoop_audio_processing_torch.engine import trainer as tt
+    from cmoop_audio_processing_torch.models import supernet as ts
+    from cmoop_audio_processing_torch.parallel.mesh import (
+        SplitData, batch_sharding, shard_population)
+
+    f, k = PLANNER_GENOMES[0]["filters"], PLANNER_GENOMES[0]["kernel_size"]
+    spec = ts.BucketSpec("A", f, k, CLASSES, compute_dtype="float32",
+                         max_blocks=3)
+    trainer = tt.PopulationTrainer(spec, ev.settings, CLASSES)
+    carry = trainer.init_carry(
+        *ts.init_population(5, spec, PLANNER_GENOMES, device))
+    dkey = torch.tensor(5, device=device)
+    first = torch.arange(64, device=device)
+
+    def run(trees):
+        """{name: per-lane results, the pop shards joined}; ``trees`` are
+        (params, state, flags, train, val) per pop shard."""
+        got = {k_: [] for k_ in ("logits", "state", "grads", "acc", "fpr",
+                                 "val_logits")}
+        for p, s_, fl, train, val in trees:
+            x, y, w = train.take(first)
+            leaves = ts.tree_map(lambda t: t.detach().requires_grad_(True), p)
+            lg, st = trainer.forward(leaves, s_, fl, x, train=True,
+                                     dropout_key=dkey)
+            loss, _ = trainer.pop_loss(leaves, s_, fl, x, y, w, dkey)
+            got["grads"].append(torch.autograd.grad(loss,
+                                                    ts.tree_leaves(leaves)))
+            got["logits"].append(torch.cat(lg, 1).detach())
+            got["state"].append([t.detach() for t in ts.tree_leaves(st)])
+            _, acc, fpr = trainer.evaluate(p, s_, fl, val)
+            got["acc"].append(acc)
+            got["fpr"].append(fpr)
+            with torch.no_grad():
+                vl, _ = trainer.forward(p, s_, fl,
+                                        val.take(slice(0, val.rows))[0],
+                                        train=False)
+            got["val_logits"].append(torch.cat(vl, 1))
+        # lane axis first on every per-lane result, shards joined
+        return {k_: ([torch.cat(c) for c in zip(*v)]
+                     if isinstance(v[0], (list, tuple)) else torch.cat(v))
+                for k_, v in got.items()}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def norm(ts_):
+        return sum(float(t.float().pow(2).sum()) for t in ts_) ** 0.5
+
+    for epoch in range(2):
+        if epoch:
+            carry = trainer.run_chunk(carry, ev._train, ev._val,
+                                      tt.train_key_of(5), epoch)
+        tree = {"params": carry["params"], "state": carry["state"],
+                "flags": carry["flags"]}
+        want = run([(*tree.values(), SplitData.of(ev._train),
+                     SplitData.of(ev._val))])
+        shards = shard_population(tree, mesh)
+
+        def split(data, i):
+            return SplitData([tuple(a.to(d) for a in data)
+                              for d in batch_sharding(mesh, i)])
+
+        got = run([(t["params"], t["state"], t["flags"], split(ev._train, i),
+                    split(ev._val, i)) for i, t in sorted(shards.items())])
+        lg_u, lg_s = want["val_logits"], got["val_logits"]
+        top2 = lg_u.topk(2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > 1e-2
+        yield {
+            "step_logits": rel(got["logits"], want["logits"]),
+            "state": max(rel(a, b) for a, b in zip(got["state"],
+                                                  want["state"])),
+            "grads": norm([a - b for a, b in zip(got["grads"], want["grads"])])
+            / norm(want["grads"]),
+            "acc_fpr_rel": max(rel(got[k_], want[k_]) for k_ in ("acc", "fpr")),
+            "logits": float((lg_s - lg_u).abs().max()),
+            "decisive": float(decisive.float().mean()),
+            "argmax_flips": int((lg_u.argmax(-1) != lg_s.argmax(-1))
+                                [decisive].sum()),
+        }
+
+
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
     the FFT route. ``launches`` keeps the first path's count,
@@ -1147,6 +1391,7 @@ def main(argv=None) -> int:
                  pop=6, gens=2)
     read_launches(records, ["log_mel_fused"], "BirdCLEF")
     phase_planner("cuda", data_dir, bird_dir, smi)
+    phase_mesh("cuda", data_dir, smi)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -19,9 +19,13 @@ checkpoint (resumable with --resume).
 Every preset runs: plain NSGA-II, the surrogate-assisted SA-NSGA-II ones
 and MOBO; the GP fits of the last two run on ``--device``. Every real run
 records its finished trainings in <out>/<preset>/fitness_cache.jsonl (a
-fresh run truncates it, ``--resume`` replays it). ``--mesh``,
-``--mesh-data`` and ``--launch-budget``, which this port does not carry,
-exit with a message naming their ROADMAP.md item.
+fresh run truncates it, ``--resume`` replays it). ``--mesh N`` shards each
+launch's lanes over N devices and ``--mesh-data M`` each pop shard's batch
+over M (parallel/mesh.py): the first N*M visible GPUs, or with ``--device
+cpu`` N*M virtual CPU entries. The CLI runs one process; a caller that
+runs several joins them with ``parallel.mesh.distributed_init`` first.
+``--launch-budget``, which this port does not carry, exits with a message
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -70,20 +74,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the deterministic closed-form evaluator (no training)")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"])
     p.add_argument("--parallel-impl", choices=["grouped", "vmap"],
-                   help="population forward implementation: one grouped "
-                        "network, or the single-model forward mapped over "
-                        "the lanes with torch.func.vmap")
+                   help="the JAX CLI's population forward choice; both "
+                        "run the one grouped network in this port")
     p.add_argument("--compaction-chunk", type=int,
                    help="epochs between early-stop lane compactions: -1 "
                         "adaptive (default), 0 always one-shot, N fixed")
     p.add_argument("--launch-budget", type=float, metavar="SECONDS",
                    help="per-launch duration bound; not in this port")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard the population over N devices; not in this "
-                        "port yet")
+                   help="shard the population over N devices (0 = no "
+                        "mesh); this one process trains the shards one "
+                        "after another, so it is not faster than no mesh")
     p.add_argument("--mesh-data", type=int, default=1,
-                   help="shard each training batch over M devices; not in "
-                        "this port yet")
+                   help="additionally shard each training batch over M "
+                        "devices (total devices = mesh * mesh_data)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the training engine and the GP fits "
                         "(default cuda)")
@@ -91,9 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported(args) -> None:
-    """Exit with a clear message for options this port does not carry."""
-    if args.mesh or args.mesh_data != 1:
-        raise SystemExit(_not_yet("--mesh/--mesh-data (multi-GPU)"))
+    """Exit with a clear message for options this port does not carry, or
+    that need another."""
+    if args.mesh_data > 1 and not args.mesh:
+        raise SystemExit(
+            "--mesh-data requires --mesh (total devices = mesh * mesh_data)"
+        )
     if args.launch_budget is not None:
         raise SystemExit(_not_yet("--launch-budget"))
 
@@ -139,7 +146,8 @@ def config_from_args(args) -> ExperimentConfig:
 
 
 def make_evaluator(cfg: ExperimentConfig, fake: bool, device="cuda",
-                   fitness_cache_path: Optional[str] = None):
+                   fitness_cache_path: Optional[str] = None,
+                   mesh_devices: int = 0, mesh_data: int = 1):
     if fake:
         from ..engine.evaluator import FakeEvaluator
 
@@ -149,8 +157,16 @@ def make_evaluator(cfg: ExperimentConfig, fake: bool, device="cuda",
     from ..data.pipeline import prepare_dataset
     from ..engine.evaluator import PopulationEvaluator
 
+    mesh = None
+    if mesh_devices:
+        from ..parallel.mesh import population_mesh
+
+        n = mesh_devices * mesh_data
+        mesh = population_mesh(
+            mesh_devices, mesh_data,
+            devices=["cpu"] * n if device == "cpu" else None)
     return PopulationEvaluator(prepare_dataset(cfg.data), cfg.train,
-                               device=device,
+                               device=device, mesh=mesh,
                                fitness_cache_path=fitness_cache_path)
 
 
@@ -242,7 +258,9 @@ def main(argv: Optional[list] = None, preset: Optional[str] = None) -> int:
     if cache_path and not args.resume and os.path.exists(cache_path):
         os.remove(cache_path)
     evaluator = make_evaluator(cfg, args.fake_eval, args.device,
-                               fitness_cache_path=cache_path)
+                               fitness_cache_path=cache_path,
+                               mesh_devices=args.mesh,
+                               mesh_data=args.mesh_data)
     pareto, _ = run(cfg, evaluator, resume=args.resume, device=args.device)
     print(f"\nFinal Pareto-optimal feasible solutions ({len(pareto)}):")
     for sol in pareto:

@@ -6,9 +6,10 @@ reference script becomes a named preset over shared dataclasses, reproducing
 that script's exact constants (sources cited per preset below).
 
 The presets are field-for-field those of cmoop_audio_processing_tpu, so a
-config means the same run in both packages. ``TrainConfig.parallel_impl``
-and ``compaction_chunk`` are read as the JAX package reads them
-(engine/evaluator.py). ``TrainConfig.launch_seconds_budget`` is kept for
+config means the same run in both packages. ``TrainConfig.compaction_chunk``
+is read as the JAX package reads it (engine/evaluator.py);
+``parallel_impl`` is kept, but both its values run the grouped forward
+(engine/trainer.py). ``TrainConfig.launch_seconds_budget`` is kept for
 that equality and is not read: the port leaves out the JAX evaluator's
 launch-duration bound (ROADMAP.md), and the CLI refuses to set it.
 """
@@ -96,7 +97,7 @@ class TrainConfig:
     # straggler. Genomes with no history sort last (treated as slow), input
     # order breaking ties.
     pack_by_stop_epoch: bool = True
-    parallel_impl: str = "grouped"  # "grouped" (one grouped-conv net) | "vmap"
+    parallel_impl: str = "grouped"  # "grouped" | "vmap": one forward here
     # Epochs between early-stop lane compactions. Compaction re-launches
     # survivors in smaller populations; worthwhile for large per-bucket
     # populations / long epoch budgets. -1 (default) = adaptive: the

@@ -41,7 +41,19 @@ another lane count runs other kernels, see utils/fitness_cache.py). On
 CUDA the path runs in deterministic mode (core/device.py), so
 re-evaluations of one launch plan repeat bit for bit.
 
-Not carried over yet (ROADMAP.md): device meshes (``parallel/mesh.py``).
+With a device mesh (parallel/mesh.py) every launch is one-shot and its
+lanes are padded to a multiple of the pop width. With a data axis of 1,
+each pop shard trains its slice of the lanes on its own device with the
+configured forward and no collective; every process runs the shards it
+owns and, after training, gathers every shard's results
+(``_gather_replicated``). With a data axis larger than 1 (one process),
+each pop shard's batch rows are split over its data devices
+(``mesh.SplitData``), with BN statistics, gradients and the loss over the
+global batch. In one process the pop shards train one after another, so
+a mesh of several GPUs is no faster than one GPU there (and slower than
+no mesh: each shard runs fewer lanes per launch); only one process per
+GPU (``mesh.distributed_init``, called by the caller) runs shards at the
+same time.
 
 A deterministic FakeEvaluator over the enumerable 288-genome space stands in
 for training in driver tests.
@@ -62,6 +74,14 @@ from ..core.device import resolve_device
 from ..core.genome import HPARAM_SPACE, Genome, genome_key, validate
 from ..models.genome_arch import model_size_mb
 from ..models.supernet import BucketSpec, init_population
+from ..parallel.mesh import (
+    Mesh,
+    SplitData,
+    batch_sharding,
+    pop_sharding,
+    replicated,
+    shard_population,
+)
 from .trainer import (
     PopulationTrainer,
     TrainSettings,
@@ -81,14 +101,17 @@ def _next_pow2(n: int) -> int:
 
 
 class PopulationEvaluator:
-    """Evaluates genome populations on one device, one population per
-    launch, with an optional durable fitness cache."""
+    """Evaluates genome populations on one device, or on the devices of a
+    mesh, one population per launch, with an optional durable fitness
+    cache. With a ``mesh``, ``device`` is not read: the data sets go to
+    every distinct device of the mesh that this process owns, once."""
 
     def __init__(
         self,
         data: Dict[str, np.ndarray],
         train_cfg: TrainConfig,
         device="cuda",
+        mesh: Optional[Mesh] = None,
         fitness_cache_path: Optional[str] = None,
     ):
         # evaluate() reads bucket-key slots 0/1 as (filters, kernel_size) to
@@ -104,16 +127,44 @@ class PopulationEvaluator:
         if unknown:
             raise ValueError(f"unknown bucket_genes {unknown!r}")
         self.cfg = train_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # a mesh spanning several processes: each runs the pop shards it
+        # owns and the results are gathered after training
+        self._multiproc = mesh is not None and mesh.process_count > 1
+        n_data = mesh.shape["data"] if mesh is not None else 1
+        if self._multiproc and n_data > 1:
+            raise NotImplementedError(
+                "multi-host meshes support data axis == 1 (population "
+                "sharding over processes); shard the batch within a "
+                "process's chips instead"
+            )
+        # a data axis larger than 1 sets parallel_impl "vmap", as the JAX
+        # package does (its GSPMD psums need the vmap forward). Here it
+        # only mirrors JAX's settings and fingerprint: both names run the
+        # same forward (engine/trainer.py, TrainSettings)
+        impl = train_cfg.parallel_impl
+        if n_data > 1:
+            impl = "vmap"
         self.settings = TrainSettings(
             epochs=train_cfg.epochs,
             batch_size=train_cfg.batch_size,
             patience=train_cfg.patience,
             learning_rate=train_cfg.learning_rate,
             restore_best_weights=train_cfg.restore_best_weights,
-            parallel_impl=train_cfg.parallel_impl,
+            parallel_impl=impl,
             compaction_chunk=train_cfg.compaction_chunk,
         )
+        if n_data > 1 and (train_cfg.batch_size % n_data
+                           or self.settings.eval_batch_size % n_data):
+            raise ValueError(
+                f"batch sizes ({train_cfg.batch_size}, "
+                f"{self.settings.eval_batch_size}) must divide by the "
+                f"'data' mesh axis ({n_data})"
+            )
+        devices = replicated(mesh) if mesh is not None else []
+        devices = [resolve_device(d) for d in devices] or [
+            resolve_device(device)]
+        self.device = devices[0]
         # pad once, move to the device once
         xtr, ytr, wtr = pad_dataset(
             data["x_train"], data["y_train"], train_cfg.batch_size
@@ -122,13 +173,18 @@ class PopulationEvaluator:
             data["x_val"], data["y_val"], self.settings.eval_batch_size
         )
 
-        def put(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        def put(a, dtype, dev):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        self._train = (put(xtr, torch.float32), put(ytr, torch.int64),
-                       put(wtr, torch.float32))
-        self._val = (put(xval, torch.float32), put(yval, torch.int64),
-                     put(wval, torch.float32))
+        # {device: (train, val)}, each distinct device once
+        self._data_on = {
+            dev: tuple(
+                (put(x, torch.float32, dev), put(y, torch.int64, dev),
+                 put(w, torch.float32, dev))
+                for x, y, w in ((xtr, ytr, wtr), (xval, yval, wval)))
+            for dev in devices
+        }
+        self._train, self._val = self._data_on[self.device]
         # Optional durable (genome, seed) -> fitness cache: completed
         # trainings survive a mid-generation crash and are replayed on
         # resume (utils/fitness_cache.py). Fingerprinted against the RAW
@@ -138,9 +194,11 @@ class PopulationEvaluator:
         if fitness_cache_path:
             from ..utils.fitness_cache import FitnessCache, evaluator_fingerprint
 
+            n_pop = mesh.shape["pop"] if mesh is not None else 1
             self.fitness_cache = FitnessCache(
                 fitness_cache_path,
-                evaluator_fingerprint(train_cfg, data, self.device.type),
+                evaluator_fingerprint(train_cfg, data, self.device.type,
+                                      n_data, n_pop),
             )
         self._eval_count = 0
         self._launch_count = 0  # training segments run this evaluate()
@@ -211,9 +269,12 @@ class PopulationEvaluator:
             for start in range(0, len(sub), pop):
                 chunk_idx = idxs[start : start + pop]
                 chunk = sub[start : start + pop]
-                padded = list(chunk) + [chunk[0]] * (
-                    _next_pow2(len(chunk)) - len(chunk)
-                )
+                target = _next_pow2(len(chunk))
+                if self.mesh is not None:
+                    # lanes shard over 'pop': pad to a multiple of its width
+                    npop = self.mesh.shape["pop"]
+                    target = -(-target // npop) * npop
+                padded = list(chunk) + [chunk[0]] * (target - len(chunk))
                 # specialize to the deepest genome actually in this launch
                 spec = self._bucket_spec(
                     f, k, max(int(g["residual_blocks"]) for g in chunk)
@@ -292,7 +353,10 @@ class PopulationEvaluator:
         ``compaction_chunk`` is honored verbatim (0 = always one-shot).
         Chunk boundaries alone leave the results bit for bit; dropping
         lanes changes the population's group count, which on CUDA runs
-        other kernels (chip_smoke.py's planner phase measures the drift)."""
+        other kernels (chip_smoke.py's planner phase measures the drift).
+        A device mesh forces one-shot."""
+        if self.mesh is not None:
+            return 0
         chunk = self.settings.compaction_chunk
         if chunk >= 0:
             return chunk
@@ -328,6 +392,8 @@ class PopulationEvaluator:
         acc_key = "acc_eval" if self.cfg.accuracy_from == "best" else "acc_last"
         trainer = PopulationTrainer(spec, self.settings, self.cfg.num_classes)
         cap = self.settings.epochs
+        if self.mesh is not None:
+            return self._run_on_mesh(trainer, padded, seed, acc_key)
         chunk = self._effective_chunk(pop)
         if chunk <= 0:
             out, _ = trainer.run_full(padded, self._train, self._val, seed, cap)
@@ -389,6 +455,62 @@ class PopulationEvaluator:
                 lane_map = [lane_map[i] for i in active] + [-1] * (
                     target_pop - len(active))
         return {"acc": acc, "fpr": fpr, "epochs": epochs, "lanes": lanes}
+
+    def _run_on_mesh(self, trainer, padded, seed, acc_key):
+        """One launch on the mesh, one-shot. Data axis 1: each owned pop
+        shard trains its lanes on its device (``trainer.run_full``) with no
+        collective; padding lanes repeat ``padded[0]`` and are never read.
+        Data axis > 1: the population is initialized once, each owned pop
+        shard's slice goes to its first data device and trains with its
+        batch rows split over its data devices. Every process then gathers
+        the shards' results."""
+        mesh = self.mesh
+        n_pop, n_data = mesh.shape["pop"], mesh.shape["data"]
+        k = len(padded) // n_pop
+        cap = self.settings.epochs
+        outs = {}
+        if n_data == 1:
+            for i in mesh.local_pop_shards():
+                train, val = self._data_on[pop_sharding(mesh)[i]]
+                outs[i], _ = trainer.run_full(
+                    padded[i * k:(i + 1) * k], train, val, seed, cap)
+            self._launch_count += 1
+        else:
+            params, state, flags = init_population(seed, trainer.spec,
+                                                   padded)
+            shards = shard_population(
+                {"params": params, "state": state, "flags": flags}, mesh)
+            for i, tree in shards.items():
+                devs = batch_sharding(mesh, i)
+                train = SplitData([self._data_on[d][0] for d in devs])
+                val = SplitData([self._data_on[d][1] for d in devs])
+                carry = trainer.init_carry(tree["params"], tree["state"],
+                                           tree["flags"])
+                carry = trainer.run_chunk(carry, train, val,
+                                          train_key_of(seed), cap)
+                outs[i] = trainer.finalize(carry, val)
+            self._launch_count += 4  # init_pop + carry + chunk + final
+        fits = self._gather_replicated({
+            i: {"acc": out[acc_key].cpu().numpy(),
+                "fpr": out["fpr"].cpu().numpy(),
+                "epochs": out["epochs_ran"].cpu().numpy()}
+            for i, out in outs.items()})
+        out = {name: np.concatenate([fits[i][name] for i in range(n_pop)])
+               for name in ("acc", "fpr", "epochs")}
+        out["lanes"] = [len(padded)]
+        return out
+
+    def _gather_replicated(self, shards: Dict[int, Dict]) -> Dict[int, Dict]:
+        """Every process ends with every pop shard's results: one
+        all-gather of the host results after a launch's training (a no-op
+        in one process)."""
+        if not self._multiproc:
+            return shards
+        import torch.distributed as dist
+
+        parts: List[Optional[Dict]] = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, shards)
+        return {i: r for part in parts for i, r in part.items()}
 
     @property
     def total_true_evals(self) -> int:

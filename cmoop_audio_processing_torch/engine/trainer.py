@@ -14,10 +14,9 @@ nsga_penalty.py:368-395):
 Shape of the loop (cmoop_audio_processing_tpu/engine/trainer.py):
 
 * each epoch walks the shuffled train set in mini-batches; one forward of
-  the grouped population network (models/grouped.py, or with
-  ``parallel_impl="vmap"`` the single-model forward mapped over the lanes
-  by ``torch.func.vmap``) and one backward serve every lane, since the
-  summed per-lane losses have disjoint parameters;
+  the grouped population network (models/grouped.py) and one backward
+  serve every lane, since the summed per-lane losses have disjoint
+  parameters;
 * Adam runs per lane with a per-lane step count. Early stopping is
   per-lane masking: a stopped lane keeps its parameters, BN state and Adam
   moments frozen (a stock ``torch.optim.Adam`` would still advance them);
@@ -48,14 +47,14 @@ import torch
 import torch.nn.functional as F
 
 from ..core.rng import fold_in, seed_key
-from ..models.grouped import apply_population
+from ..models.grouped import apply_population_shards
 from ..models.supernet import (
     BucketSpec,
-    apply_model,
     init_population,
     tree_leaves,
     tree_map,
 )
+from ..parallel.mesh import SplitData, as_parts
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -70,10 +69,13 @@ class TrainSettings:
     adam_eps: float = 1e-7  # keras Adam default epsilon
     restore_best_weights: bool = True
     eval_batch_size: int = 256
-    # Population forward: "grouped" runs the population as one grouped
-    # network (models/grouped.py); "vmap" maps the single-model
-    # ``supernet.apply_model`` over the lanes with ``torch.func.vmap``, the
-    # JAX package's semantic reference. Both give each lane its own model.
+    # The JAX package's choice of population forward ("grouped" | "vmap").
+    # Both names run the grouped network (models/grouped.py) here:
+    # torch.func.vmap's own batching of conv and BN sums in other orders,
+    # and Adam turns that rounding into whole steps on the biases that BN
+    # cancels, so a mapped forward drifted from the grouped one over whole
+    # runs. The name stays for the configs, the CLI and the fitness-cache
+    # fingerprint.
     parallel_impl: str = "grouped"
     # Epochs per ``run_chunk`` call before the evaluator may compact
     # early-stopped lanes into a smaller population; 0 = one-shot.
@@ -171,29 +173,31 @@ class PopulationTrainer:
 
     def forward(self, params, state, flags, x, *, train: bool,
                 dropout_key=None):
-        """(P, B, C) logits and the new BN state of the whole population,
-        through the forward ``settings.parallel_impl`` names. Under "vmap"
-        each lane runs ``apply_model`` on its own params, BN state and
-        flags; the step key is shared and every model folds its own uid
-        into it, as the grouped forward does per lane."""
-        if self.settings.parallel_impl == "vmap":
-            def one(p, s, f):
-                return apply_model(self.spec, p, s, f, x, train=train,
-                                   dropout_key=dropout_key)
-
-            return torch.func.vmap(one)(params, state, flags)
-        return apply_population(self.spec, params, state, flags, x,
-                                train=train, dropout_key=dropout_key)
+        """(P, B, C) logits and the new BN state of the whole population
+        (``grouped.apply_population_shards``). ``x`` is a batch tensor, or
+        a list of its row parts on a pop shard's data devices
+        (``SplitData.take``), with the BN statistics over the whole batch;
+        the logits come back in the same form."""
+        parts = as_parts(x)
+        logits, new_state = apply_population_shards(
+            self.spec, params, state, flags, parts, train=train,
+            dropout_key=dropout_key)
+        return (logits if parts is x else logits[0]), new_state
 
     def pop_loss(self, params, state, flags, xb, yb, wb, dkey):
         """Summed per-model weighted CE (the gradient of the sum is each
-        model's own gradient) and the new BN state."""
-        logits, new_state = self.forward(params, state, flags, xb, train=True,
+        model's own gradient) and the new BN state. The batch is tensors
+        or lists of row parts (``forward``): each part's weighted CE sums,
+        added on the parameters' device, over the whole batch's weight
+        sum."""
+        xs, ys, ws = (as_parts(t) for t in (xb, yb, wb))
+        logits, new_state = self.forward(params, state, flags, xs, train=True,
                                          dropout_key=dkey)
-        ce = cross_entropy(logits, yb.expand(logits.shape[:-1]))
-        wsum = torch.clamp(wb.sum(), min=1.0)
-        per_model = (ce * wb).sum(dim=1) / wsum
-        return per_model.sum(), new_state
+        dev = flags["n_blocks"].device
+        wsum = torch.clamp(sum(w.sum().to(dev) for w in ws), min=1.0)
+        ce = sum((cross_entropy(lg, y.expand(lg.shape[:-1])) * w)
+                 .sum(dim=1).to(dev) for lg, y, w in zip(logits, ys, ws))
+        return (ce / wsum).sum(), new_state
 
     def adam_step(self, params, grads, opt, active):
         """One optax-style Adam update per lane; lanes not ``active`` keep
@@ -251,41 +255,50 @@ class PopulationTrainer:
     @torch.no_grad()
     def evaluate(self, params, state, flags, val):
         """Eval-mode pass over the (padded) val set in eval batches;
-        returns per-lane (loss, acc, fpr)."""
-        xval, yval, wval = val
+        returns per-lane (loss, acc, fpr). ``val`` is an (x, y, w) triple
+        or a ``SplitData`` (the sums taken on the parameters' device)."""
+        val = SplitData.of(val)
         eb = self.settings.eval_batch_size
         p = flags["n_blocks"].shape[0]
-        dev = xval.device
+        dev = flags["n_blocks"].device
         loss_sum = torch.zeros(p, device=dev)
         correct_sum = torch.zeros(p, device=dev)
         w_sum = torch.zeros((), device=dev)
         cms = torch.zeros(p, self.num_classes, self.num_classes, device=dev)
-        for start in range(0, xval.shape[0], eb):
-            xb, yb, wb = (a[start:start + eb] for a in (xval, yval, wval))
-            logits, _ = self.forward(params, state, flags, xb, train=False)
-            ce = cross_entropy(logits, yb.expand(logits.shape[:-1]))
-            preds = torch.argmax(logits, dim=-1)
-            loss_sum += (ce * wb).sum(dim=1)
-            correct_sum += ((preds == yb).float() * wb).sum(dim=1)
-            w_sum += wb.sum()
-            t = one_hot(yb, self.num_classes) * wb[:, None]
-            cms += torch.einsum("bc,pbk->pck", t, one_hot(preds, self.num_classes))
+        for start in range(0, val.rows, eb):
+            xs, ys, ws = val.take(slice(start, start + eb))
+            logits, _ = self.forward(params, state, flags, xs, train=False)
+            for lg, y, w in zip(logits, ys, ws):
+                ce = cross_entropy(lg, y.expand(lg.shape[:-1]))
+                preds = torch.argmax(lg, dim=-1)
+                loss_sum += (ce * w).sum(dim=1).to(dev)
+                correct_sum += ((preds == y).float() * w).sum(dim=1).to(dev)
+                w_sum += w.sum().to(dev)
+                t = one_hot(y, self.num_classes) * w[:, None]
+                cms += torch.einsum("bc,pbk->pck", t,
+                                    one_hot(preds, self.num_classes)).to(dev)
         return loss_sum / w_sum, correct_sum / w_sum, _fpr_from_confusion(cms)
 
-    def train_epoch(self, carry, train, epoch_key):
-        xtr, ytr, wtr = train
-        b = self.settings.batch_size
-        n_train = xtr.shape[0]
+    def permutation(self, epoch_key: int, n_train: int) -> torch.Tensor:
+        """The epoch's shuffle of the (padded) train rows, from a CPU
+        ``torch.Generator`` seeded with the epoch key. A test may override
+        it to feed the JAX package's ``jax.random.permutation`` stream."""
         gen = torch.Generator()
         gen.manual_seed(epoch_key)
-        perm = torch.randperm(n_train, generator=gen).to(xtr.device)
+        return torch.randperm(n_train, generator=gen)
+
+    def train_epoch(self, carry, train, epoch_key):
+        b = self.settings.batch_size
+        train = SplitData.of(train)
+        n_train = train.rows
+        perm = self.permutation(epoch_key, n_train).to(train.device)
         params, state, opt = carry["params"], carry["state"], carry["opt"]
         active = ~carry["stopped"]
         for start in range(0, n_train, b):
             idx = perm[start:start + b]
             params, state, opt = self.batch_step(
-                params, state, opt, carry["flags"], xtr[idx], ytr[idx],
-                wtr[idx], fold_in(epoch_key, idx[0]), active,
+                params, state, opt, carry["flags"], *train.take(idx),
+                fold_in(epoch_key, idx[0]), active,
             )
         return params, state, opt
 
@@ -376,7 +389,7 @@ class PopulationTrainer:
         + the epoch loop + final metrics for one (padded) population.
         Returns (final metrics, trained carry): the search reads the
         metrics, the export also keeps the carry's weights."""
-        dev = train[0].device
+        dev = SplitData.of(train).device
         params, state, flags = init_population(seed, self.spec, genomes, dev)
         carry = self.init_carry(params, state, flags)
         carry = self.run_chunk(carry, train, val, train_key_of(seed), epoch_end)

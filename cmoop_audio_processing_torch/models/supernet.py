@@ -319,22 +319,33 @@ def batch_norm(x, gamma, beta, mean_st, var_st, use_bn, train: bool):
     x (B, C, H, W). Statistics are f32 whatever the activation dtype; the
     normalization runs in the activation dtype. ``use_bn`` is a per-channel
     (or scalar) bool selecting normalized vs raw. Returns (x', mean', var')."""
-    dtype = x.dtype
     if train:
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = xf.var(dim=(0, 2, 3), unbiased=False)
-        new_mean = BN_MOMENTUM * mean_st + (1 - BN_MOMENTUM) * mean
-        new_var = BN_MOMENTUM * var_st + (1 - BN_MOMENTUM) * var
+        new_mean, new_var = bn_moving(mean_st, var_st, mean, var)
     else:
         mean, var = mean_st, var_st
         new_mean, new_var = mean_st, var_st
+    return bn_normalize(x, gamma, beta, mean, var, use_bn), new_mean, new_var
+
+
+def bn_moving(mean_st, var_st, mean, var):
+    """Keras's moving statistics: momentum on the OLD value."""
+    return (BN_MOMENTUM * mean_st + (1 - BN_MOMENTUM) * mean,
+            BN_MOMENTUM * var_st + (1 - BN_MOMENTUM) * var)
+
+
+def bn_normalize(x, gamma, beta, mean, var, use_bn):
+    """Normalize x (B, C, H, W) with per-channel statistics, in the
+    activation dtype; ``use_bn`` selects normalized vs raw."""
+    dtype = x.dtype
     inv = torch.rsqrt(var + BN_EPS)
     scale = (inv * gamma).to(dtype)[None, :, None, None]
     shift = (beta - mean * inv * gamma).to(dtype)[None, :, None, None]
     xn = x * scale + shift
     mask = use_bn if use_bn.dim() == 0 else use_bn[None, :, None, None]
-    return torch.where(mask, xn, x), new_mean, new_var
+    return torch.where(mask, xn, x)
 
 
 def dropout_mask(key, uids: torch.Tensor, layer: int, shape, keep: float):

@@ -22,12 +22,12 @@ out: they change only which genomes share a launch.
 
 The backend and device are part of the identity: a CPU run, a CUDA run and
 a JAX run of one (genome, seed) agree in distribution, not bit for bit, so
-their caches never replay into each other. So are ``parallel_impl`` and
-``compaction_chunk``: the vmap forward sums its gradients in another order
-than the grouped one (on the CPU too), and on CUDA a launch of another
-lane count runs other cuDNN and cuBLAS kernels, whose sums round
-differently; a training run can amplify either into another stop epoch
-and accuracy (chip_smoke.py's planner phase prints how far). On CUDA the
+their caches never replay into each other. So are ``parallel_impl`` (as
+in the JAX package, where the vmap forward sums in another order; both
+names run one forward in this port) and ``compaction_chunk``: on CUDA a
+launch of another lane count runs other cuDNN and cuBLAS kernels, whose
+sums round differently, and a training run can amplify that into another
+stop epoch and accuracy (chip_smoke.py's planner phase prints how far). On CUDA the
 evaluation path runs in deterministic mode (core/device.py), so one
 launch plan repeats bit for bit, and a resume under the same settings
 replays fitnesses that plan computed; genomes that share a launch with

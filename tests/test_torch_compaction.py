@@ -4,9 +4,9 @@ compaction policy (``_effective_chunk``) and the whole launch plan of
 evaluator's without its heavy-lane split and launch-duration bound, which
 the port leaves out; ``gather_lanes`` takes the JAX carry's lanes; and on
 the port's own side, compacted training equals one-shot bit for bit and
-the ``vmap`` population forward tracks the grouped one. f32 on the CPU, at
-the shapes of tests/test_compaction.py (192 x 16 x 8, 4 classes, 12 epochs,
-patience 2)."""
+the ``vmap`` setting gives the grouped forward's results bit for bit. f32
+on the CPU, at the shapes of tests/test_compaction.py (192 x 16 x 8, 4
+classes, 12 epochs, patience 2)."""
 
 import jax
 import numpy as np
@@ -244,18 +244,17 @@ def _vmap_against_grouped(spec, params, state, flags, x, y, w, dkey):
     return out["vmap"], out["grouped"]
 
 
-def _assert_within(got, want, rel):
+def _assert_equal(got, want):
+    assert len(got) == len(want)
     for a, b in zip(got, want):
-        scale = max(1.0, float(b.abs().max()))
-        torch.testing.assert_close(a, b, rtol=0.0, atol=rel * scale)
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("template", ["A", "B"])
 def test_vmap_forward_equals_grouped(template):
-    """``parallel_impl="vmap"`` maps ``supernet.apply_model`` over the lanes;
-    its logits, BN state, loss, gradients and validation metrics equal the
-    grouped forward's in f32 within 1e-6 times each tensor's largest
-    magnitude (at least 1e-6 absolute): the two sum in different orders."""
+    """``parallel_impl="vmap"`` runs the grouped forward, so its logits, BN
+    state, loss, gradients and validation metrics equal the grouped
+    setting's in f32 bit for bit."""
     genomes = [dict(g, use_dropout=True) for g in GENOMES]
     spec = ts.BucketSpec(template, 16, 3, 4, compute_dtype="float32",
                          max_blocks=2)
@@ -268,19 +267,19 @@ def test_vmap_forward_equals_grouped(template):
     got, want = _vmap_against_grouped(spec, params, state, flags, x, y, w,
                                       torch.tensor(777))
     assert got[0].shape == (4, 32, 4)
-    _assert_within(got, want, 1e-6)
+    _assert_equal(got, want)
 
 
 @pytest.mark.parametrize("template", ["A", "B"])
 def test_vmap_step_equals_grouped_from_trained_states(data, template):
     """After each of three epochs of grouped training (dropout on, no lane
     stopping), a vmap step and a vmap validation pass from the trained
-    params and BN state give the grouped ones' results within 1e-6 as
+    params and BN state give the grouped ones' results bit for bit as
     above: the trained state, not only the initial one, goes through vmap
-    as through the grouped forward. (Two separate runs, one per forward,
-    drift much further apart: Adam turns the different rounding of
-    near-zero gradients, such as a bias that BN cancels, into whole
-    learning-rate steps.)"""
+    as through the grouped forward. (Any rounding difference would not
+    stay small over whole runs: Adam turns the rounding of near-zero
+    gradients, such as a bias that BN cancels, into whole learning-rate
+    steps.)"""
     genomes = [dict(g, use_dropout=True) for g in GENOMES]
     spec = ts.BucketSpec(template, 16, 3, 4, compute_dtype="float32",
                          max_blocks=2)
@@ -295,5 +294,5 @@ def test_vmap_step_equals_grouped_from_trained_states(data, template):
         got, want = _vmap_against_grouped(spec, carry["params"],
                                           carry["state"], carry["flags"],
                                           x, y, w, torch.tensor(epoch))
-        _assert_within(got, want, 1e-6)
+        _assert_equal(got, want)
     assert not bool(carry["stopped"].any())

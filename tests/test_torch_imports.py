@@ -62,7 +62,7 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
     """Every module of both paths imports, and both CPU paths complete, with
     the optional packages and JAX made unimportable: KWS (MFCC extraction,
     npy split, a tiny real NSGA-II run with lane compaction and the vmap
-    forward) and BirdCLEF (the extraction CLI on a tiny wav tree with
+    forward, another on a (2, 2) mesh of CPU entries) and BirdCLEF (the extraction CLI on a tiny wav tree with
     --kind log_mel, then a tiny real sa_nsga_penalty run with its GP fits);
     each real run keeps its fitness cache."""
     script = textwrap.dedent(f"""
@@ -88,7 +88,7 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
                   "algorithms.initializers", "surrogate.gp",
                   "surrogate.kernels", "surrogate.manager",
                   "utils.reporting", "utils.xlsx", "utils.checkpoint",
-                  "utils.fitness_cache",
+                  "utils.fitness_cache", "parallel.mesh",
                   "core.rng"):
             importlib.import_module("cmoop_audio_processing_torch." + m)
         from cmoop_audio_processing_torch.cli import extract_features
@@ -117,6 +117,12 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
                      "--pop-size", "2", "--max-gen", "1", "--epochs", "1",
                      "--compaction-chunk", "1", "--parallel-impl", "vmap",
                      "--out", {str(tmp_path / "out")!r}]) == 0
+        assert main(["--preset", "nsga_penalty", "--source", "npy",
+                     "--data-path", {str(tmp_path / "npy")!r},
+                     "--device", "cpu", "--compute-dtype", "float32",
+                     "--pop-size", "2", "--max-gen", "1", "--epochs", "1",
+                     "--mesh", "2", "--mesh-data", "2",
+                     "--out", {str(tmp_path / "mesh")!r}]) == 0
 
         wav_dir = {str(tmp_path / "bird_wavs")!r}
         for k in range(3):

@@ -9,6 +9,7 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from cmoop_audio_processing_torch.cli import compare as tcompare
 from cmoop_audio_processing_torch.cli import psi_merge as tmerge
@@ -22,6 +23,10 @@ from cmoop_audio_processing_tpu.metrics import hypervolume as JH
 from cmoop_audio_processing_tpu.metrics import quality as JQ
 from cmoop_audio_processing_tpu.metrics.tchebycheff import rank_front as j_rank
 from cmoop_audio_processing_tpu.utils.xlsx import read_xlsx
+
+# the test workers share the CPU's cores: one intra-op thread per worker
+# keeps PyTorch's thread pool from oversubscribing them
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALL8 = os.path.join(ROOT, "examples", "all8")
