@@ -10,15 +10,17 @@
   (``sa_nsga_penalty``) front;
 * the evaluator's launch planner on both splits: lane compaction, the vmap
   setting, fitness-cache replay, the card's executed training FLOP rate;
-* the device mesh on the one card: pop shards and data shards.
+* the device mesh on the one card: pop shards and data shards;
+* the heavy-lane split and the launch-duration bound on the BirdCLEF split.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. build   — compile every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
-             per kernel, all started together; ptxas's registers and
-             spills for each kernel function;
+             per kernel, and the native HV core (native/hv.cpp, g++), all
+             started together; ptxas's registers and spills for each
+             kernel function;
 2. kernels — each kernel against its plain PyTorch version on the card, at
              its path's shapes (atol 3e-2, rtol 1e-3, the JAX package's
              Pallas-vs-XLA tolerance), with kernel, plain and bound times:
@@ -34,7 +36,9 @@ Phases (any failure exits non-zero; nothing is caught):
              npy split;
 4. train   — ``PopulationEvaluator.evaluate`` in bf16 on 8 fixed genomes,
              the widest and the narrowest among them, twice: the fitness must
-             repeat bit for bit;
+             repeat bit for bit, and every launch must hold the lane count
+             the default policy's split rule gives its bucket (as in
+             phases 5, 10 and 11);
 5. search  — the CLI, ``--preset nsga_penalty --source npy --device cuda``;
              its per-generation and final CSVs must carry the reference
              schema, and its front must not be empty;
@@ -54,8 +58,9 @@ Phases (any failure exits non-zero; nothing is caught):
              validation wavs, extracted again through ``mfcc_fused`` and
              standardized with the training split's scaler, must give the
              split's features and logits bit for bit;
-8. compare — ``cli/compare.py`` on phase 5's and phase 6's fronts: each
-             front's hypervolume finite and above 0;
+8. compare — ``cli/compare.py`` on phase 5's and phase 6's fronts, on the
+             native HV core built in phase 1: each front's hypervolume
+             finite and above 0;
 9. bird-extract — 11 classes x 120 synthetic 5-s bird calls written as
              16-bit wavs, then ``cli/extract_features.py --kind log_mel
              --duration 5 --layout npy --device cuda``; (n, 501, 40) rows,
@@ -64,10 +69,12 @@ Phases (any failure exits non-zero; nothing is caught):
              genome, twice: bit-for-bit repeatable fitness; peak memory;
 11. bird-search — the CLI, ``--preset sa_nsga_penalty --source npy --device
              cuda``: GP fits on the card; the reference's surrogate
-             artifacts, with a front of at least one feasible genome;
+             artifacts, with a front of at least one feasible genome. At
+             501x40 the split rule trains the heavy buckets' genomes in
+             one-lane launches, and the duration bound chunks the longest;
 12. planner — 8 genomes of one (64, 5) bucket, mixed depth, BN and dropout,
              on phase 3's split in bf16 (12 epochs, patience 2): one-shot,
-             compacted every 3 epochs (twice), the vmap setting one-shot,
+             compacted every 2 epochs (twice), the vmap setting one-shot,
              and a fresh evaluator on the compacted run's fitness cache.
              The compacted run must really compact, repeat bit for bit
              and agree with the one-shot run within ``patience`` epochs and
@@ -90,7 +97,17 @@ Phases (any failure exits non-zero; nothing is caught):
              and one validation pass at a time split by the mesh's own
              placement against the unsplit population, by the JAX
              package's bounds. Each run's seconds and its drift from the
-             8-lane no-mesh run are printed.
+             8-lane no-mesh run are printed;
+14. split  — the planner's 8 genomes on phase 9's BirdCLEF split in bf16,
+             for enough epochs (at least 3) that the split rule splits
+             their bucket: fused (one 8-lane launch), the default policy
+             without a duration bound (8 one-lane launches at their own
+             depths), each genome alone, and the default policy with a
+             budget of 2.5 one-lane epochs (segmented launches). The split
+             must equal each genome alone and the segmented run bit for
+             bit; trainings per hour of fused and split, the split's drift
+             from fused and the executed one-lane rates at BirdCLEF and KWS
+             beside the rate the plan assumes are printed.
 
 Launch counts are zeroed just before each path (phase 3, phase 6, phase 9)
 and read just after it (phase 5, phase 8, phase 11): each kernel of a path
@@ -234,17 +251,21 @@ def phase_build() -> None:
         build_library,
         ptxas_report,
     )
+    from cmoop_audio_processing_torch.native import build as native
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        hv = pool.submit(native.build)
         reports = list(pool.map(ptxas_report, KERNELS))
+        assert hv.result(), "the native HV core did not build (g++)"
     secs = time.perf_counter() - t0
+    log(f"[build] native HV core -> {os.path.relpath(native.HV_LIB, ROOT)}")
     for name, report in zip(KERNELS, reports):
         log(f"[build] {name} -> {os.path.relpath(build_library(name), ROOT)}")
         for fn, regs, st, ld in ptxas_summary(report):
             log(f"[build]   ptxas {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
-    log(f"[build] {len(KERNELS)} kernels in {secs:.1f} s")
+    log(f"[build] {len(KERNELS)} kernels and the HV core in {secs:.1f} s")
 
 
 def check_close(name: str, got, want) -> float:
@@ -499,11 +520,67 @@ SMOKE_GENOMES = [
 ]
 
 
+def recording(ev, calls: list):
+    """Wrap ``ev.evaluate`` to append, for each call, the genomes it had to
+    train (those its fitness cache did not hold) and its timing record."""
+    evaluate = ev.evaluate
+
+    def wrapped(genomes, seed=0):
+        cache = ev.fitness_cache
+        fresh = [g for g in genomes if cache is None or cache.get(g, seed) is None]
+        out = evaluate(genomes, seed=seed)
+        calls.append((fresh, ev.timings[-1]))
+        return out
+
+    ev.evaluate = wrapped
+    return ev
+
+
+def check_split_rule(tag: str, ev, calls) -> None:
+    """Every launch of ``calls`` (from ``recording``) has the lane count
+    the default policy gives its bucket: one lane a genome where
+    ``_should_split_lanes`` holds for the bucket, else one launch of the
+    bucket's genomes padded to a power of two. The buckets are the
+    default (filters, kernel_size, residual_blocks) ones, so a record's
+    (filters, kernel, max_blocks) names its bucket."""
+    from collections import Counter
+
+    assert ev.cfg.compaction_chunk == -1 and ev.mesh is None, ev.cfg
+    assert tuple(ev.cfg.bucket_genes) == ("filters", "kernel_size",
+                                          "residual_blocks"), ev.cfg
+    n_split = n_launches = 0
+    for fresh, timing in calls:
+        sizes = Counter((g["filters"], g["kernel_size"], g["residual_blocks"])
+                        for g in fresh)
+        want = Counter()
+        for (f, k, b), n in sizes.items():
+            assert n <= ev.cfg.max_models_per_program, (f, k, b, n)
+            split = ev._should_split_lanes(f, k, [{"residual_blocks": b}])
+            n_split += split and n > 1
+            if split:
+                want[(f, k, b, 1)] += n
+            else:
+                want[(f, k, b, 1 << (n - 1).bit_length())] += 1
+        got = Counter((r["filters"], r["kernel"], r["max_blocks"], r["pop"])
+                      for r in timing["chunks"])
+        if got != want:
+            raise AssertionError(f"[{tag}] launches {sorted(got.items())} are "
+                                 "not the split rule's "
+                                 f"{sorted(want.items())}")
+        n_launches += len(timing["chunks"])
+    log(f"[{tag}] launch plan: {n_launches} launches over {len(calls)} "
+        f"evaluations, each with the split rule's lane count "
+        f"({n_split} buckets of several genomes split into one-lane "
+        f"launches; rule: one lane's run >= "
+        f"{ev._MIN_SPLIT_PROGRAM_SECONDS} s at "
+        f"{ev._SUSTAINED_FLOPS_PER_S / 1e12:g} TFLOP/s)")
+
+
 def phase_train(tag: str, device: str, data_dir: str, genomes, cfg,
                 min_acc: float) -> None:
     """``PopulationEvaluator.evaluate`` under ``cfg`` on ``genomes``, twice:
-    the fitness must repeat bit for bit and the best genome must pass
-    ``min_acc``."""
+    the fitness must repeat bit for bit, the best genome must pass
+    ``min_acc`` and every launch must have the split rule's lane count."""
     import torch
 
     from cmoop_audio_processing_torch.core.config import DataConfig
@@ -515,11 +592,15 @@ def phase_train(tag: str, device: str, data_dir: str, genomes, cfg,
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for _ in range(2):
-        ev = PopulationEvaluator(data, cfg, device=device)
+        calls = []
+        ev = recording(PopulationEvaluator(data, cfg, device=device), calls)
         t0 = time.perf_counter()
         runs.append(ev.evaluate(genomes, seed=7))
         log(f"[{tag}] {len(genomes)} genomes, {ev.timings[-1]['launches']} "
-            f"populations, {time.perf_counter() - t0:.2f} s")
+            f"training segments, lanes per launch "
+            f"{[r['pop'] for r in ev.timings[-1]['chunks']]}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        check_split_rule(tag, ev, calls)
     for fit in runs[0]:
         assert all(v == v and abs(v) != float("inf") for v in fit), fit
     if runs[0] != runs[1]:
@@ -551,20 +632,32 @@ def phase_search(tag: str, preset: str, device: str, data_dir: str,
                  out_dir: str, epochs: int, pop: int, gens: int) -> None:
     """The CLI on ``preset``: its per-generation CSV and its final front,
     under the reference script's own file names, must carry the reference
-    schema, and the front must hold at least one feasible genome."""
-    from cmoop_audio_processing_torch.cli.main import main as cli_main
+    schema, the front must hold at least one feasible genome, and every
+    launch must have the split rule's lane count."""
+    from cmoop_audio_processing_torch.cli import main as cli
     from cmoop_audio_processing_torch.core.config import get_preset
     from cmoop_audio_processing_torch.core.genome import GENE_ORDER
 
     run_dir = os.path.join(out_dir, preset)
     shutil.rmtree(run_dir, ignore_errors=True)  # a fresh run, fresh progress log
+    make, made, calls = cli.make_evaluator, [], []
+
+    def make_recording(*a, **kw):  # the CLI's own evaluator, recorded
+        made.append(recording(make(*a, **kw), calls))
+        return made[-1]
+
+    cli.make_evaluator = make_recording
     t0 = time.perf_counter()
-    rc = cli_main([
-        "--preset", preset, "--source", "npy", "--data-path", data_dir,
-        "--device", device, "--max-gen", str(gens), "--pop-size", str(pop),
-        "--epochs", str(epochs), "--out", out_dir,
-    ])
+    try:
+        rc = cli.main([
+            "--preset", preset, "--source", "npy", "--data-path", data_dir,
+            "--device", device, "--max-gen", str(gens), "--pop-size",
+            str(pop), "--epochs", str(epochs), "--out", out_dir,
+        ])
+    finally:
+        cli.make_evaluator = make
     assert rc == 0, rc
+    check_split_rule(tag, made[0], calls)
     suffix = get_preset(preset).artifact_suffix
     suffix = f"_{suffix}" if suffix else ""
     with open(os.path.join(run_dir, "all_generations.csv"), newline="") as f:
@@ -723,7 +816,10 @@ def phase_compare(fronts: dict, report: str) -> None:
     import math
 
     from cmoop_audio_processing_torch.cli import compare
+    from cmoop_audio_processing_torch.metrics import hypervolume
 
+    assert hypervolume.core() == "native", "the HV core built in phase 1 " \
+        "did not load"
     assert compare.main([f"--front={k}={v}" for k, v in fronts.items()]
                         + ["--out", report]) == 0
     with open(report) as f:
@@ -731,7 +827,8 @@ def phase_compare(fronts: dict, report: str) -> None:
     hv = rep["hypervolume"]
     assert sorted(hv) == sorted(fronts), hv
     assert all(math.isfinite(v) and v > 0 for v in hv.values()), hv
-    log(f"[compare] hypervolume {hv}; true front {rep['true_front_size']} rows")
+    log(f"[compare] hypervolume {hv} ({hypervolume.core()} core); true "
+        f"front {rep['true_front_size']} rows")
 
 
 def synth_birds(rng, per_class: int):
@@ -820,11 +917,15 @@ PLANNER_GENOMES = [
 ]
 PLANNER_EPOCHS = 12
 PLANNER_PATIENCE = 2
-PLANNER_CHUNK = 3
-# twice the presets' learning rate: at 1e-3 nearly every genome still
-# improves at the 12-epoch cap on this easy synthetic split, and nothing
-# would be left to compact
-PLANNER_LR = 2e-3
+# Three times the presets' learning rate, compaction every 2 epochs: the
+# population halves once 4 of its 8 lanes have stopped at a chunk's end.
+# At 1e-3 nearly every genome still improves at the 12-epoch cap on this
+# easy synthetic split. Since the grouped forward took the layout that
+# keeps a lane's bits independent of its lane count (PERF.md), 2e-3 stops
+# 3 lanes before the cap, and 3e-3 stops 5, the fourth at epoch 10, which
+# a 3-epoch chunk does not end on
+PLANNER_CHUNK = 2
+PLANNER_LR = 3e-3
 VMAP_EPOCHS = 3
 # Bounds on a vmap step against the grouped step from the same state
 # (``vmap_step``): the vmap setting runs the grouped forward
@@ -837,24 +938,9 @@ VMAP_BOUNDS = {
 }
 
 
-def epoch_flops(ev, pop: int, spec) -> float:
-    """Training FLOPs of one lockstep epoch of a ``pop``-lane launch: the
-    spec's largest genome, 3x its forward for every padded training row and
-    1x for every padded validation row."""
-    from cmoop_audio_processing_torch.models.genome_arch import count_fwd_flops
-
-    gmax = {"filters": spec.filters, "kernel_size": spec.kernel,
-            "use_bn": True, "residual_blocks": spec.max_blocks,
-            "fc_layers": 4, "use_dropout": False}
-    hw = tuple(int(d) for d in ev._train[0].shape[1:3])
-    fwd = count_fwd_flops(gmax, hw, ev.cfg.num_classes, ev.cfg.template)
-    return pop * fwd * (3 * int(ev._train[0].shape[0])
-                        + int(ev._val[0].shape[0]))
-
-
 def phase_planner(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
     """The launch planner on the card, at full width on the KWS split, in
-    bf16: (a) one-shot, (b) compacted every 3 epochs, (c) (b) again, (d) the
+    bf16: (a) one-shot, (b) compacted every 2 epochs, (c) (b) again, (d) the
     vmap setting one-shot, (e) a fresh evaluator on (b)'s fitness cache.
     Gates: (b) really compacted; (c) equals (b) and (e) returns (b)'s
     fitness bit for bit, (e) training nothing; (b) agrees with (a) bit for
@@ -1051,7 +1137,7 @@ def planner_rates(device: str, kws_ev, kws_secs: float, bird_dir: str) -> None:
     f, k = PLANNER_GENOMES[0]["filters"], PLANNER_GENOMES[0]["kernel_size"]
     (rec,) = kws_ev.timings[-1]["chunks"]
     spec = kws_ev._bucket_spec(f, k, rec["max_blocks"])
-    rate = epoch_flops(kws_ev, rec["pop"], spec) * max(rec["epochs"]) / kws_secs
+    rate = kws_ev._epoch_flops(rec["pop"], spec) * max(rec["epochs"]) / kws_secs
     log(f"[planner] KWS executed training rate {rate / 1e12:.4f} TFLOP/s "
         f"({rec['pop']} lanes x {max(rec['epochs'])} epochs, {kws_secs:.2f} s)")
     bird = prepare_dataset(DataConfig(source="npy", path=bird_dir,
@@ -1067,7 +1153,7 @@ def planner_rates(device: str, kws_ev, kws_secs: float, bird_dir: str) -> None:
         ev.evaluate(pair[:lanes], seed=5)
         secs = time.perf_counter() - t0
         spec = ev._bucket_spec(f, k, 3)
-        rate = epoch_flops(ev, lanes, spec) * bird_cfg.epochs / secs
+        rate = ev._epoch_flops(lanes, spec) * bird_cfg.epochs / secs
         log(f"[planner] BirdCLEF 501x40 executed training rate, {lanes} "
             f"lane(s): {rate / 1e12:.4f} TFLOP/s ({secs:.2f} s for 2 epochs "
             f"of {len(bird['y_train'])} rows)")
@@ -1108,7 +1194,7 @@ def phase_mesh(device: str, data_dir: str, smi: str) -> None:
         2): the same kernels at the same shapes, so bit for bit; then again,
         bit for bit. Its drift from the 8-lane no-mesh run is printed, not
         gated: cuDNN runs other kernels at 2 groups than at 8, and over 3
-        epochs at lr 2e-3, with the best epoch restored, their rounding
+        epochs, with the best epoch restored, their rounding
         moves a genome's validation accuracy by tens of samples (PERF.md);
     (c) a (2, 2) mesh over ``[cuda:0] * 4`` in f32 (each batch's rows split
         over two entries, BN statistics and gradients over the global
@@ -1315,6 +1401,132 @@ def mesh_steps(device: str, ev, mesh):
         }
 
 
+def phase_split(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
+    """The heavy-lane split and the launch-duration bound on the BirdCLEF
+    501x40 split (phase 9's), the planner's 8 genomes of one (64, 5) bucket
+    in bf16, patience 2, for E epochs: at least 3, and enough that the
+    split rule splits the bucket at the port's rate.
+
+    (a) fused: ``compaction_chunk=0``, one 8-lane launch;
+    (b) the default policy with ``launch_seconds_budget=0``: 8 one-lane
+        launches, each specialized to its genome's depth;
+    (c) each genome evaluated alone with ``compaction_chunk=0``;
+    (d) the default policy with a budget of 2.5 epochs of a 3-block lane's
+        estimate, so that its one-lane launches train in segments.
+
+    Gates: (b)'s launch records; (b) equals (c) bit for bit (accuracy, FPR,
+    epochs: the same one-lane kernels); (d) has more training segments
+    than (b) has launches and equals (b) bit for bit (chunk boundaries
+    alone). Printed: the seconds and trainings per hour of (a) and (b),
+    how far (b) is from (a) (another group count), and the executed
+    one-lane training rates at BirdCLEF (from (b)) and at KWS (one genome
+    on phase 3's split) beside ``_SUSTAINED_FLOPS_PER_S``."""
+    import dataclasses
+    import math
+
+    from cmoop_audio_processing_torch.core.config import DataConfig, TrainConfig
+    from cmoop_audio_processing_torch.core.genome import genome_key
+    from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
+    from cmoop_audio_processing_torch.engine.evaluator import PopulationEvaluator
+
+    log(f"[split] card: {smi}")
+    t_phase = time.perf_counter()
+    bird = prepare_dataset(DataConfig(source="npy", path=bird_dir,
+                                      num_classes=BIRD_CLASSES))
+    n_val = len(bird["y_val"])
+    genomes = PLANNER_GENOMES
+    f, k = genomes[0]["filters"], genomes[0]["kernel_size"]
+    base = TrainConfig(num_classes=BIRD_CLASSES, template="B",
+                       patience=PLANNER_PATIENCE, compute_dtype="bfloat16",
+                       bucket_genes=("filters", "kernel_size"))
+    probe = PopulationEvaluator(bird, base, device=device)
+    rate = probe._SUSTAINED_FLOPS_PER_S
+    est3 = probe._est_epoch_seconds(1, probe._bucket_spec(f, k, 3))
+    epochs = max(3, math.ceil(probe._MIN_SPLIT_PROGRAM_SECONDS / est3))
+    base = dataclasses.replace(base, epochs=epochs)
+    del probe
+    log(f"[split] {epochs} epochs: one 3-block lane's epoch is estimated at "
+        f"{est3:.4f} s at {rate / 1e12:g} TFLOP/s; the rule splits at "
+        f">= {PopulationEvaluator._MIN_SPLIT_PROGRAM_SECONDS} s a run")
+
+    def run(tag, cfg, alone=False):
+        ev = PopulationEvaluator(bird, cfg, device=device)
+        t0 = time.perf_counter()
+        if alone:
+            fits = [ev.evaluate([g], seed=5)[0] for g in genomes]
+        else:
+            fits = ev.evaluate(genomes, seed=5)
+        secs = time.perf_counter() - t0
+        ep = [ev._epoch_history[genome_key(g)] for g in genomes]
+        chunks = [r for t in ev.timings for r in t["chunks"]]
+        segments = sum(t["launches"] for t in ev.timings)
+        log(f"[split] ({tag}) {secs:.2f} s, "
+            f"{len(genomes) * 3600 / secs:.1f} trainings/h; {len(chunks)} "
+            f"launches, {segments} training segments, lanes per launch "
+            f"{[r['pop'] for r in chunks]}; epochs_ran {ep}")
+        return ev, fits, ep, secs, chunks, segments
+
+    ev_a, fits_a, ep_a, secs_a, _, _ = run(
+        "a: fused", dataclasses.replace(base, compaction_chunk=0))
+    split = dataclasses.replace(base, launch_seconds_budget=0.0)
+    ev_b, fits_b, ep_b, secs_b, rec_b, seg_b = run("b: split", split)
+    assert ev_b._should_split_lanes(f, k, genomes)
+    got = [(r["pop"], r["max_blocks"], r["compacted"]) for r in rec_b]
+    want = [(1, g["residual_blocks"], False) for g in genomes]
+    if got != want:
+        raise AssertionError(f"(b) launches (pop, max_blocks, compacted) "
+                             f"{got}, want {want}")
+    _, fits_c, ep_c, _, _, _ = run(
+        "c: each genome alone", dataclasses.replace(base, compaction_chunk=0),
+        alone=True)
+    if (fits_c, ep_c) != (fits_b, ep_b):
+        raise AssertionError(f"(c) differs from (b): {fits_c} {ep_c} vs "
+                             f"{fits_b} {ep_b}")
+    budget = 2.5 * est3
+    ev_d, fits_d, ep_d, _, rec_d, seg_d = run(
+        f"d: split, budget {budget:.4f} s",
+        dataclasses.replace(base, launch_seconds_budget=budget))
+    if not seg_d > seg_b:
+        raise AssertionError(f"(d) ran {seg_d} training segments, (b) "
+                             f"{seg_b}: the duration bound never engaged")
+    if (fits_d, ep_d) != (fits_b, ep_b):
+        raise AssertionError(f"(d) differs from (b): {fits_d} {ep_d} vs "
+                             f"{fits_b} {ep_b}")
+    log(f"[split] (b) one-lane launches at their genomes' depths, equal to "
+        f"(c) bit for bit; (d) {seg_d} segments, lanes per segment "
+        f"{[r['lanes'] for r in rec_d]}, equal to (b) bit for bit")
+    d_acc = [abs(x[0] - y[0]) for x, y in zip(fits_b, fits_a)]
+    n_diff = sum(1 for a, x, y in zip(d_acc, ep_b, ep_a) if a or x != y)
+    log(f"[split] (b) against (a): {n_diff} of {len(genomes)} genomes "
+        f"differ; largest |d acc| {max(d_acc)!r} (one validation sample "
+        f"{1 / n_val!r}); trainings/h (b) / (a) {secs_a / secs_b:.4f}; "
+        f"epochs_ran (a) {ep_a}")
+
+    # executed one-lane training rates, beside the rate the plan assumes
+    flops = sum(ev_b._epoch_flops(1, ev_b._bucket_spec(f, k, r["max_blocks"]))
+                * r["epochs"][0] for r in rec_b)
+    bird_rate = flops / secs_b
+    kws = prepare_dataset(DataConfig(source="npy", path=data_dir,
+                                     num_classes=CLASSES))
+    kws_cfg = TrainConfig(epochs=epochs, patience=epochs + 1,
+                          compute_dtype="bfloat16", compaction_chunk=0)
+    ev = PopulationEvaluator(kws, kws_cfg, device=device)
+    t0 = time.perf_counter()
+    ev.evaluate(genomes[:1], seed=5)
+    secs = time.perf_counter() - t0
+    (rec,) = ev.timings[-1]["chunks"]
+    spec = ev._bucket_spec(f, k, rec["max_blocks"])
+    kws_rate = ev._epoch_flops(1, spec) * rec["epochs"][0] / secs
+    low = min(bird_rate, kws_rate)
+    log(f"[split] executed one-lane training rate: BirdCLEF 501x40 "
+        f"{bird_rate / 1e12:.4f} TFLOP/s ((b), {secs_b:.2f} s), KWS 45x13 "
+        f"{kws_rate / 1e12:.4f} TFLOP/s ({rec['epochs'][0]} epochs of "
+        f"{len(kws['y_train'])} rows, {secs:.2f} s); the plan assumes "
+        f"{rate / 1e12:g} TFLOP/s ("
+        + ("at or below both" if rate <= low else "ABOVE the lower") + ")")
+    log(f"[split] phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
     the FFT route. ``launches`` keeps the first path's count,
@@ -1392,6 +1604,7 @@ def main(argv=None) -> int:
     read_launches(records, ["log_mel_fused"], "BirdCLEF")
     phase_planner("cuda", data_dir, bird_dir, smi)
     phase_mesh("cuda", data_dir, smi)
+    phase_split("cuda", data_dir, bird_dir, smi)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -24,8 +24,8 @@ launch's lanes over N devices and ``--mesh-data M`` each pop shard's batch
 over M (parallel/mesh.py): the first N*M visible GPUs, or with ``--device
 cpu`` N*M virtual CPU entries. The CLI runs one process; a caller that
 runs several joins them with ``parallel.mesh.distributed_init`` first.
-``--launch-budget``, which this port does not carry, exits with a message
-naming its ROADMAP.md item.
+``--launch-budget`` sets ``TrainConfig.launch_seconds_budget``, the
+evaluator's per-launch duration bound (0 disables it).
 """
 
 from __future__ import annotations
@@ -37,11 +37,6 @@ import sys
 from typing import Optional
 
 from ..core.config import PRESETS, ExperimentConfig, get_preset
-
-
-def _not_yet(what: str) -> str:
-    return (f"{what} is not in the PyTorch port yet (ROADMAP.md, "
-            "'Left out of the port so far')")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,7 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="epochs between early-stop lane compactions: -1 "
                         "adaptive (default), 0 always one-shot, N fixed")
     p.add_argument("--launch-budget", type=float, metavar="SECONDS",
-                   help="per-launch duration bound; not in this port")
+                   help="estimated seconds on the card a training launch "
+                        "may run; over-budget launches run chunked (the "
+                        "same results as one-shot). 0 disables the bound")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard the population over N devices (0 = no "
                         "mesh); this one process trains the shards one "
@@ -95,14 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported(args) -> None:
-    """Exit with a clear message for options this port does not carry, or
-    that need another."""
+    """Exit with a clear message for options that need another."""
     if args.mesh_data > 1 and not args.mesh:
         raise SystemExit(
             "--mesh-data requires --mesh (total devices = mesh * mesh_data)"
         )
-    if args.launch_budget is not None:
-        raise SystemExit(_not_yet("--launch-budget"))
 
 
 def config_from_args(args) -> ExperimentConfig:
@@ -123,6 +117,10 @@ def config_from_args(args) -> ExperimentConfig:
         )
     if args.parallel_impl:
         train = dataclasses.replace(train, parallel_impl=args.parallel_impl)
+    if args.launch_budget is not None:
+        train = dataclasses.replace(
+            train, launch_seconds_budget=args.launch_budget
+        )
     search = cfg.search
     if args.seed is not None:
         search = dataclasses.replace(search, seed=args.seed)

@@ -7,11 +7,10 @@ that script's exact constants (sources cited per preset below).
 
 The presets are field-for-field those of cmoop_audio_processing_tpu, so a
 config means the same run in both packages. ``TrainConfig.compaction_chunk``
-is read as the JAX package reads it (engine/evaluator.py);
-``parallel_impl`` is kept, but both its values run the grouped forward
-(engine/trainer.py). ``TrainConfig.launch_seconds_budget`` is kept for
-that equality and is not read: the port leaves out the JAX evaluator's
-launch-duration bound (ROADMAP.md), and the CLI refuses to set it.
+and ``launch_seconds_budget`` are read as the JAX package reads them
+(engine/evaluator.py: lane compaction, the heavy-lane split and the
+launch-duration bound); ``parallel_impl`` is kept, but both its values run
+the grouped forward (engine/trainer.py).
 """
 
 from __future__ import annotations
@@ -105,8 +104,10 @@ class TrainConfig:
     # when its padded lane count is >= 8 and the epoch budget is at least
     # 8*patience; 0 = always one-shot; N>0 = fixed chunk.
     compaction_chunk: int = -1
-    # The JAX package's per-launch duration bound; not read by this port
-    # (module docstring).
+    # Per-launch duration bound in estimated seconds on the card: under the
+    # adaptive policy (compaction_chunk=-1) a launch estimated to run longer
+    # trains in chunks of at most this long (results unchanged: chunk
+    # boundaries alone change nothing). 0 disables the bound.
     launch_seconds_budget: float = 20.0
 
 

@@ -15,15 +15,22 @@ The launch plan is the JAX package's:
 * stop-epoch packing — when a bucket splits into several launches, genomes
   are ordered by their last observed stop epoch so fast stoppers share a
   launch;
+* the heavy-lane split (``_should_split_lanes``) — under the adaptive
+  policy (``compaction_chunk=-1``, no mesh) a bucket whose one-lane whole
+  run is estimated at ``_MIN_SPLIT_PROGRAM_SECONDS`` or more trains each
+  genome in a launch of its own, specialized to its own depth;
 * lane compaction (``_effective_chunk``) — a population trains in chunks
   of epochs; between chunks the lanes that early-stopped are finalized and
   dropped, and the survivors go on as a population of the next power of
-  two. Compacted launches run last.
+  two. Compacted launches run last;
+* the launch-duration bound (``_effective_chunk``) — under the adaptive
+  policy a launch estimated to run longer than ``TrainConfig.
+  launch_seconds_budget`` trains in chunks of at most that many seconds
+  (0 disables it).
 
-The JAX package's heavy-lane split and launch-duration bound are left out
-(ROADMAP.md): the plan is the JAX evaluator's with
-``launch_seconds_budget=0`` and no split, and ``TrainConfig.
-launch_seconds_budget`` is not read.
+Both estimates come from ``_est_epoch_seconds``: the executed training
+FLOPs of an epoch (``_epoch_flops``) over ``_SUSTAINED_FLOPS_PER_S``, a
+rate read on the card.
 
 Launches run one after another and each one's results are read, published
 and written to the fitness cache before the next starts (the JAX package's
@@ -72,7 +79,7 @@ import torch
 from ..core.config import TrainConfig
 from ..core.device import resolve_device
 from ..core.genome import HPARAM_SPACE, Genome, genome_key, validate
-from ..models.genome_arch import model_size_mb
+from ..models.genome_arch import count_fwd_flops, model_size_mb
 from ..models.supernet import BucketSpec, init_population
 from ..parallel.mesh import (
     Mesh,
@@ -251,6 +258,10 @@ class PopulationEvaluator:
             pop = min(
                 _next_pow2(len(sub)), max(self.cfg.max_models_per_program, 1)
             )
+            if pop > 1 and self._should_split_lanes(f, k, sub):
+                # heavy lanes: one launch per genome, each specialized to
+                # its own depth
+                pop = 1
             if len(sub) > pop and self.cfg.pack_by_stop_epoch:
                 # stop-epoch packing (TrainConfig.pack_by_stop_epoch): group
                 # similar-stop genomes into the same launch; unknown genomes
@@ -283,7 +294,7 @@ class PopulationEvaluator:
         # one-shot launches first, compacted ones last (the JAX package's
         # order; a stable sort keeps the bucket order within each group)
         launches.sort(
-            key=lambda t: self._effective_chunk(len(t[2])) > 0
+            key=lambda t: self._effective_chunk(len(t[2]), t[1]) > 0
         )
         log_launches = os.environ.get("CMOOP_LOG_LAUNCHES", "0") == "1"
         chunk_records = []
@@ -314,7 +325,7 @@ class PopulationEvaluator:
                 "kernel": spec.kernel,
                 "max_blocks": spec.max_blocks,
                 "pop": pop,
-                "compacted": self._effective_chunk(pop) > 0,
+                "compacted": self._effective_chunk(pop, spec) > 0,
                 "epochs": [int(e) for e in fits["epochs"]],
                 # lanes of each training segment: one entry for a one-shot
                 # launch, falling where compaction dropped stopped lanes
@@ -344,13 +355,74 @@ class PopulationEvaluator:
 
     # -- the launch policy ----------------------------------------------------
 
-    def _effective_chunk(self, pop: int) -> int:
+    # Sustained training rate assumed by the launch-time estimates: at or
+    # below the lowest executed training rate chip_smoke.py has read at
+    # full width on either preset's shape, on an NVIDIA H100 80GB HBM3 at a
+    # 700.00 W power limit: one KWS 45x13 lane, where the host's per-step
+    # work bounds the trainer (PERF.md). Underestimating it only makes the
+    # plan split and chunk earlier.
+    _SUSTAINED_FLOPS_PER_S = 3e12
+
+    def _epoch_flops(self, pop: int, spec: BucketSpec) -> int:
+        """Executed training FLOPs of one lockstep epoch of a ``pop``-lane
+        launch of ``spec``: the spec's largest genome, 3x its forward for
+        every padded training row and 1x for every padded validation row."""
+        gmax = {
+            "filters": spec.filters, "kernel_size": spec.kernel,
+            "use_bn": True, "residual_blocks": spec.max_blocks,
+            "fc_layers": 4, "use_dropout": False,
+        }
+        hw = tuple(int(d) for d in self._train[0].shape[1:3])
+        fwd = count_fwd_flops(gmax, hw, self.cfg.num_classes,
+                              self.cfg.template)
+        n_train_pad = int(self._train[0].shape[0])
+        n_val_pad = int(self._val[0].shape[0])
+        return pop * fwd * (3 * n_train_pad + n_val_pad)
+
+    def _est_epoch_seconds(self, pop: int, spec: BucketSpec) -> float:
+        """Estimated seconds of one lockstep epoch of a ``pop``-lane launch
+        of ``spec`` on the card."""
+        return self._epoch_flops(pop, spec) / self._SUSTAINED_FLOPS_PER_S
+
+    # The split rule: under the adaptive policy a bucket of several lanes
+    # trains one launch per genome when one lane's whole run is estimated
+    # at this many seconds or more. A launch that long is long beside the
+    # per-launch cost every population pays (its init and the host's reads
+    # of each epoch's stop flags), while lockstep fusion bills every lane
+    # until the bucket's slowest model stops; one-lane launches also
+    # specialize to their own genome's depth. chip_smoke.py's split phase
+    # measures what the rule does to trainings per hour on the card.
+    _MIN_SPLIT_PROGRAM_SECONDS = 2.0
+
+    def _should_split_lanes(self, f: int, k: int, sub: List[Genome]) -> bool:
+        """Whether a bucket's genomes train in one-lane launches rather
+        than fused: only under ``compaction_chunk=-1`` and never on a mesh
+        (the pop axis is the sharded dimension there)."""
+        if self.mesh is not None or self.settings.compaction_chunk >= 0:
+            return False
+        spec = self._bucket_spec(
+            f, k, max(int(g["residual_blocks"]) for g in sub)
+        )
+        return (
+            self._est_epoch_seconds(1, spec) * self.settings.epochs
+            >= self._MIN_SPLIT_PROGRAM_SECONDS
+        )
+
+    def _effective_chunk(self, pop: int, spec: BucketSpec) -> int:
         """Resolve ``TrainConfig.compaction_chunk`` for a launch of ``pop``
-        padded lanes. -1 = adaptive: lane compaction pays only when enough
-        lanes can be dropped (pop >= 8) and the epoch budget dwarfs the
-        chunk quantum; 2*patience epochs (at least 10) between compactions
-        let stopping decisions settle. An explicit non-negative
-        ``compaction_chunk`` is honored verbatim (0 = always one-shot).
+        padded lanes of ``spec``. -1 = adaptive, two terms (the smaller
+        wins when both engage):
+
+        * lane compaction — pays only when enough lanes can be dropped
+          (pop >= 8) and the epoch budget dwarfs the chunk quantum;
+          2*patience epochs (at least 10) between compactions let stopping
+          decisions settle;
+        * launch-duration bound — a launch whose estimated time exceeds
+          ``launch_seconds_budget`` (> 0) runs in chunks of at most that
+          many estimated seconds.
+
+        An explicit non-negative ``compaction_chunk`` is honored verbatim
+        (0 = always one-shot, which also disables the duration bound).
         Chunk boundaries alone leave the results bit for bit; dropping
         lanes changes the population's group count, which on CUDA runs
         other kernels (chip_smoke.py's planner phase measures the drift).
@@ -360,12 +432,21 @@ class PopulationEvaluator:
         chunk = self.settings.compaction_chunk
         if chunk >= 0:
             return chunk
+        lane_chunk = 0
         if (
             pop >= 8
             and self.settings.epochs >= 8 * max(self.settings.patience, 1)
         ):
-            return max(2 * self.settings.patience, 10)
-        return 0
+            lane_chunk = max(2 * self.settings.patience, 10)
+        dur_chunk = 0
+        budget = self.cfg.launch_seconds_budget
+        if budget and budget > 0:
+            est = self._est_epoch_seconds(pop, spec)
+            if est * self.settings.epochs > budget:
+                dur_chunk = max(int(budget / est), 1)
+        if lane_chunk and dur_chunk:
+            return min(lane_chunk, dur_chunk)
+        return lane_chunk or dur_chunk
 
     # -- launches -------------------------------------------------------------
 
@@ -394,7 +475,7 @@ class PopulationEvaluator:
         cap = self.settings.epochs
         if self.mesh is not None:
             return self._run_on_mesh(trainer, padded, seed, acc_key)
-        chunk = self._effective_chunk(pop)
+        chunk = self._effective_chunk(pop, spec)
         if chunk <= 0:
             out, _ = trainer.run_full(padded, self._train, self._val, seed, cap)
             self._launch_count += 1

@@ -58,6 +58,7 @@ from ..parallel.mesh import SplitData, as_parts
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
+MAX_ACTIVATION_ELEMENTS = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,14 +253,24 @@ class PopulationTrainer:
             "epoch": 0,
         }
 
+    def _eval_rows(self, pop: int, val: SplitData) -> int:
+        """Rows per eval batch: ``eval_batch_size``, or fewer where the
+        batch's largest activation, the stem's (pop * filters * H * W a
+        row), would pass cuDNN's 32-bit indexing (256 BirdCLEF maps
+        through 8 lanes of 64 filters); a multiple of the data parts."""
+        h, w = val.copies[0][0].shape[1:3]
+        fit = MAX_ACTIVATION_ELEMENTS // (pop * self.spec.filters * h * w)
+        n = len(val.copies)
+        return max(min(self.settings.eval_batch_size, fit) // n * n, n)
+
     @torch.no_grad()
     def evaluate(self, params, state, flags, val):
         """Eval-mode pass over the (padded) val set in eval batches;
         returns per-lane (loss, acc, fpr). ``val`` is an (x, y, w) triple
         or a ``SplitData`` (the sums taken on the parameters' device)."""
         val = SplitData.of(val)
-        eb = self.settings.eval_batch_size
         p = flags["n_blocks"].shape[0]
+        eb = self._eval_rows(p, val)
         dev = flags["n_blocks"].device
         loss_sum = torch.zeros(p, device=dev)
         correct_sum = torch.zeros(p, device=dev)

@@ -12,19 +12,60 @@ exact algorithm (so parity is exact up to float error):
 * d>=4: WFG-style recursive exclusive-hypervolume, exponential worst case but
   fine for small fronts; provided for completeness.
 
-A copy of cmoop_audio_processing_tpu/metrics/hypervolume.py without its
-native core: that module calls a C++ build of the same 2-D/3-D algorithms
-when one exists (equal to the numpy code within 1e-14 relative,
-tests/test_metrics.py), and this one always runs the numpy code.
+A C++ implementation of the same 2-D/3-D algorithms (native/hv.cpp, built
+into build/native/libhv.so by ``python -m
+cmoop_audio_processing_torch.native.build``) is used when its shared library
+has been built, as in cmoop_audio_processing_tpu/metrics/hypervolume.py; it
+agrees with the numpy code within 1e-14 relative
+(tests/test_torch_host_modules.py), which stays as the plain version and the
+fallback. ``core()`` names the one that runs.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 
+from ..native.build import HV_LIB
+
+_NATIVE: Optional[ctypes.CDLL] = None
+_NATIVE_TRIED = False
 _WFG_WARN_SIZE = 24  # WFG recursion is exponential in the front size
+
+
+def open_native(path: str) -> Optional[ctypes.CDLL]:
+    """The HV library at ``path`` with ``hv_compute``'s signature set, or
+    None if it cannot be loaded."""
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        return None
+    lib.hv_compute.restype = ctypes.c_double
+    lib.hv_compute.argtypes = [
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double),
+    ]
+    return lib
+
+
+def _load_native() -> Optional[ctypes.CDLL]:
+    global _NATIVE, _NATIVE_TRIED
+    if _NATIVE_TRIED:
+        return _NATIVE
+    _NATIVE_TRIED = True
+    if os.path.exists(HV_LIB):
+        _NATIVE = open_native(HV_LIB)
+    return _NATIVE
+
+
+def core() -> str:
+    """"native" when the C++ core serves 2-D/3-D fronts, else "numpy"."""
+    return "native" if _load_native() is not None else "numpy"
 
 
 def _clip_to_ref(points: np.ndarray, ref: np.ndarray) -> np.ndarray:
@@ -142,6 +183,19 @@ def hypervolume(points: Sequence[Sequence[float]], ref: Sequence[float]) -> floa
     if pts.ndim != 2 or pts.shape[1] != r.shape[0]:
         raise ValueError(f"points {pts.shape} incompatible with ref {r.shape}")
     d = pts.shape[1]
+    lib = _load_native()
+    if lib is not None and d in (2, 3):
+        flat = np.ascontiguousarray(pts).ravel()
+        return float(
+            lib.hv_compute(
+                flat.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                pts.shape[0],
+                d,
+                np.ascontiguousarray(r).ctypes.data_as(
+                    ctypes.POINTER(ctypes.c_double)
+                ),
+            )
+        )
     if d == 2:
         return _hv2d(pts, r)
     if d == 3:

@@ -38,6 +38,7 @@ from .supernet import (
     bn_normalize,
     conv2d,
     dropout_mask,
+    lane_conv1x1,
     maxpool2,
     nchw,
     tree_map,
@@ -51,7 +52,10 @@ from .supernet import (
 def group_conv(h, w, b, stride: int, dtype: torch.dtype):
     """A population's conv layer as ONE grouped conv: h (B, pop*C_in, H, W)
     with channels in (pop, C) order, w (pop, C_out, C_in, k, k), b (pop,
-    C_out) -> (B, pop*C_out, H', W')."""
+    C_out) -> (B, pop*C_out, H', W'). A 1x1 conv (the stride-2 skip
+    projections) runs as one batched matmul (``supernet.lane_conv1x1``)."""
+    if w.shape[-1] == 1:
+        return lane_conv1x1(h, w, b, stride, dtype)
     pop = w.shape[0]
     w = w.reshape((pop * w.shape[1],) + tuple(w.shape[2:]))
     return conv2d(h, w, b.reshape(-1), stride, dtype, groups=pop)
@@ -172,9 +176,12 @@ def apply_population_shards(
     def each(fn, hs):
         return [fn(h) for h in hs]
 
-    # the shared input broadcast into pop groups: (B, pop*1, H, W)
-    hs = [nchw(x).expand(-1, pop, -1, -1) for x in xs]
-    hs = conv(hs, lambda q: q["stem1"])
+    # Every lane reads the same one-channel input, so the first conv is ONE
+    # ungrouped conv from it to all lanes' channels, (B, pop*C, H, W): the
+    # conv apply_model runs, at every lane count (a grouped conv over the
+    # input broadcast into pop groups rounds differently at pop 1)
+    hs = [conv2d(nchw(x), p_of(x)["stem1"]["w"].flatten(0, 1),
+                 p_of(x)["stem1"]["b"].reshape(-1), 1, dtype) for x in xs]
     if spec.template == "A":
         hs = each(F.relu, bn(hs, "stem1_bn", params["stem1_bn"]))
         hs = conv(hs, lambda q: q["stem2"])

@@ -292,8 +292,11 @@ def params_to_jax(params, state):
 # ---------------------------------------------------------------------------
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) -> (B, C, H, W)."""
-    return x.permute(0, 3, 1, 2)
+    """(B, H, W, 1) -> (B, 1, H, W) in the standard layout (a permute would
+    leave channels-last strides, which the convs would carry on, and oneDNN
+    then reduces BN statistics in an order that depends on the channel
+    count, so a lane's results would depend on the lanes beside it)."""
+    return x.reshape(x.shape[0], 1, x.shape[1], x.shape[2])
 
 
 def conv2d(x, w, b, stride: int, dtype: torch.dtype, groups: int = 1):
@@ -304,6 +307,24 @@ def conv2d(x, w, b, stride: int, dtype: torch.dtype, groups: int = 1):
     y = F.conv2d(x.to(dtype), w.to(dtype), stride=stride,
                  padding=k // 2 if stride == 1 else 0, groups=groups)
     return y + b.to(dtype)[None, :, None, None]
+
+
+def lane_conv1x1(h, w, b, stride: int, dtype: torch.dtype):
+    """1x1 conv of each lane's channels as one batched matmul over the
+    lanes: h (B, pop*C_in, H, W) with channels in (pop, C) order, w (pop,
+    C_out, C_in, 1, 1), b (pop, C_out) -> (B, pop*C_out, H', W'), in the
+    compute dtype. The skip projections run here rather than as a (grouped)
+    conv: oneDNN picks a 1x1 conv's algorithm by its shape and group count,
+    so a lane's sums would round differently at another lane count."""
+    pop, c_out, c_in = w.shape[:3]
+    hs = h[:, :, ::stride, ::stride].to(dtype)
+    n, _, hh, ww = hs.shape
+    a = hs.reshape(n, pop, c_in, hh * ww).permute(1, 0, 3, 2).reshape(
+        pop, n * hh * ww, c_in)
+    y = torch.bmm(a, w.reshape(pop, c_out, c_in).transpose(1, 2).to(dtype))
+    y = y.reshape(pop, n, hh * ww, c_out).permute(1, 0, 3, 2).reshape(
+        n, pop * c_out, hh, ww)
+    return y + b.reshape(-1).to(dtype)[None, :, None, None]
 
 
 def maxpool2(x: torch.Tensor) -> torch.Tensor:
@@ -380,6 +401,8 @@ def apply_model(
     new_state: Dict = {}
 
     def conv(h, p, stride=1):
+        if p["w"].shape[-1] == 1:  # as grouped.group_conv does
+            return lane_conv1x1(h, p["w"][None], p["b"][None], stride, dtype)
         return conv2d(h, p["w"], p["b"], stride, dtype)
 
     def bn(h, name, p):

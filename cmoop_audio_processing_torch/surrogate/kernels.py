@@ -10,7 +10,8 @@ cmoop_audio_processing_tpu/surrogate/kernels.py.
 
 Kernels take (N, D) and (M, D) feature matrices and return (N, M) Gram
 matrices; ``matern`` broadcasts a batch of length scales over a shared
-distance matrix.
+distance matrix. ``rbf`` and ``scaled_matern_white`` complete the JAX
+module's set (the ops index re-exports them).
 """
 
 from __future__ import annotations
@@ -47,3 +48,29 @@ def matern(xa, xb, length_scale, nu: float = 1.5):
     """Matern kernel of two feature matrices. The ``+1e-30`` inside the
     square root keeps the gradient finite at zero distance (the diagonal)."""
     return matern_from_dist(torch.sqrt(sqdist(xa, xb) + 1e-30), length_scale, nu)
+
+
+def rbf(xa, xb, length_scale):
+    """Squared-exponential kernel of two feature matrices."""
+    return torch.exp(-0.5 * sqdist(xa, xb) / length_scale ** 2)
+
+
+def scaled_matern_white(xa, xb, log_constant, log_length, log_noise,
+                        nu: float = 1.5, diag_noise: bool = True):
+    """C(c) * Matern(l, nu) [+ White(n) on the diagonal when xa is xb].
+
+    Matches the reference surrogate kernel structure
+    (sa_nsga_penalty.py:278). The white term only contributes to the Gram
+    diagonal (sklearn semantics: WhiteKernel vanishes for cross-covariance).
+    The log-hyperparameters may be floats or 0-d tensors."""
+    c = torch.exp(torch.as_tensor(log_constant, dtype=xa.dtype,
+                                  device=xa.device))
+    length = torch.exp(torch.as_tensor(log_length, dtype=xa.dtype,
+                                       device=xa.device))
+    k = c * matern(xa, xb, length, nu)
+    if diag_noise:
+        n = torch.exp(torch.as_tensor(log_noise, dtype=xa.dtype,
+                                      device=xa.device))
+        k = k + n * torch.eye(xa.shape[0], xb.shape[0], dtype=xa.dtype,
+                              device=xa.device)
+    return k

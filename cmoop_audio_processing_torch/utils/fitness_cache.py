@@ -16,18 +16,21 @@ there — a resumed generation trains only the lanes that never completed.
 Format: JSONL. Line 1 is a header ``{"fingerprint": {...}}`` binding the
 cache to everything a fitness DOES depend on (training budget, optimizer
 settings, template, dtype, data-mesh width, dataset content hash, the
-backend and device kind that computed it, and the population forward and
-compaction setting of the launch plan). bucket_genes and padding are left
-out: they change only which genomes share a launch.
+backend and device kind that computed it, and every setting that chooses
+the launch plan).
 
 The backend and device are part of the identity: a CPU run, a CUDA run and
 a JAX run of one (genome, seed) agree in distribution, not bit for bit, so
 their caches never replay into each other. So are ``parallel_impl`` (as
 in the JAX package, where the vmap forward sums in another order; both
-names run one forward in this port) and ``compaction_chunk``: on CUDA a
-launch of another lane count runs other cuDNN and cuBLAS kernels, whose
-sums round differently, and a training run can amplify that into another
-stop epoch and accuracy (chip_smoke.py's planner phase prints how far). On CUDA the
+names run one forward in this port) and the settings that decide which
+genomes share a launch and how many lanes it holds: ``compaction_chunk``,
+``launch_seconds_budget``, ``max_models_per_program``, ``bucket_genes``
+and the heavy-lane split rule's rate and threshold (engine/evaluator.py).
+On CUDA a launch of another lane count runs other cuDNN and cuBLAS
+kernels, whose sums round differently, and a training run can amplify
+that into another stop epoch and accuracy (chip_smoke.py's planner and
+split phases print how far). On CUDA the
 evaluation path runs in deterministic mode (core/device.py), so one
 launch plan repeats bit for bit, and a resume under the same settings
 replays fitnesses that plan computed; genomes that share a launch with
@@ -69,17 +72,30 @@ def dataset_fingerprint(data: Dict[str, np.ndarray]) -> str:
 def evaluator_fingerprint(train_cfg, data: Dict[str, np.ndarray], device: str,
                           data_axis: int = 1, pop_axis: int = 1) -> Dict:
     """The inputs a cached fitness is valid for: the JAX package's
-    fingerprint plus ``"backend": "torch"``, ``device`` ("cuda" or "cpu"),
-    ``parallel_impl`` and ``compaction_chunk``. ``data_axis`` and
-    ``pop_axis`` are the mesh widths (1 without a mesh), kept from the JAX
-    format: sharding changes per-shard group sizes and reduction order, so
-    fitnesses of other widths are not bit-equal either."""
+    fingerprint (in format 3) plus ``"backend": "torch"``, ``device``
+    ("cuda" or "cpu") and the launch plan's settings: ``parallel_impl``,
+    ``compaction_chunk``, ``launch_seconds_budget``,
+    ``max_models_per_program``, ``bucket_genes`` and the split rule
+    (``split_flops_per_s``, ``split_min_seconds``, the evaluator's class
+    constants). ``data_axis`` and ``pop_axis`` are the mesh widths (1
+    without a mesh), kept from the JAX format: sharding changes per-shard
+    group sizes and reduction order, so fitnesses of other widths are not
+    bit-equal either."""
+    from ..engine.evaluator import PopulationEvaluator
+
     return {
-        "format": 2,
+        "format": 3,
         "backend": "torch",
         "device": str(device),
         "parallel_impl": str(train_cfg.parallel_impl),
         "compaction_chunk": int(train_cfg.compaction_chunk),
+        "launch_seconds_budget": float(train_cfg.launch_seconds_budget),
+        "max_models_per_program": int(train_cfg.max_models_per_program),
+        "bucket_genes": [str(g) for g in train_cfg.bucket_genes],
+        "split_flops_per_s": float(
+            PopulationEvaluator._SUSTAINED_FLOPS_PER_S),
+        "split_min_seconds": float(
+            PopulationEvaluator._MIN_SPLIT_PROGRAM_SECONDS),
         "pop_axis": int(pop_axis),
         "epochs": int(train_cfg.epochs),
         "batch_size": int(train_cfg.batch_size),

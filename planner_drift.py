@@ -6,7 +6,7 @@ the order of floating-point sums changes.
 On chip_smoke.py's KWS split (2000 synthetic 1-s clips, written by its
 extraction phase) and its planner genomes (8 lanes of one 64-filter 5x5
 bucket, 12 epochs, patience 2), for each learning rate and compute dtype
-below: (a) one-shot, (b) compacted every 3 epochs, (d) the vmap setting
+below: (a) one-shot, (b) compacted every 2 epochs, (d) the vmap setting
 one-shot; each genome's epochs_ran and accuracy. Before that, in bf16 and
 f32, chip_smoke.py's vmap checks (``vmap_steps``): a training step and a
 validation pass of the same population through the vmap and the grouped

@@ -1,12 +1,15 @@
 """The PyTorch port's launch planner against the JAX evaluator's: the
-compaction policy (``_effective_chunk``) and the whole launch plan of
-``evaluate`` (with ``_run_bucket`` stubbed on both sides) equal the JAX
-evaluator's without its heavy-lane split and launch-duration bound, which
-the port leaves out; ``gather_lanes`` takes the JAX carry's lanes; and on
-the port's own side, compacted training equals one-shot bit for bit and
-the ``vmap`` setting gives the grouped forward's results bit for bit. f32
-on the CPU, at the shapes of tests/test_compaction.py (192 x 16 x 8, 4
-classes, 12 epochs, patience 2)."""
+policy functions (``_effective_chunk``, ``_est_epoch_seconds``,
+``_should_split_lanes``) and the whole launch plan of ``evaluate`` (with
+``_run_bucket`` stubbed on both sides) equal the JAX evaluator's, heavy-lane
+split and launch-duration bound included, with both packages' sustained
+rate set to one value (the port's own, and rates low enough that the split
+and the bound engage at these shapes); ``gather_lanes`` takes the JAX
+carry's lanes; and on the port's own side, compacted training equals
+one-shot bit for bit and the ``vmap`` setting gives the grouped forward's
+results bit for bit. f32 on the CPU, at the shapes of
+tests/test_compaction.py (192 x 16 x 8, 4 classes, 12 epochs, patience
+2)."""
 
 import jax
 import numpy as np
@@ -51,34 +54,63 @@ def data():
     )
 
 
-def _pair(data, monkeypatch, **kw):
-    """(JAX evaluator, port evaluator) on one config. The JAX side runs
-    without its launch-duration bound (budget 0) and its heavy-lane split,
-    which the port leaves out."""
-    monkeypatch.setattr(jev.PopulationEvaluator, "_should_split_lanes",
-                        lambda self, f, k, sub: False)
+# the port's own sustained rate, before any test sets another
+OWN_RATE = tev.PopulationEvaluator._SUSTAINED_FLOPS_PER_S
+# rates at which the 16 x 8 shapes' one-lane epochs take ~1.6-120 s
+# (every bucket splits, the duration bound engages), ~0.016-1.2 s (the
+# split depends on the bucket and the epoch budget) and ~1600 s or more
+# (every chunk is one epoch)
+LOW_RATES = (1e9, 1e11, 1e6)
+
+
+def set_rate(monkeypatch, rate):
+    """Both packages' sustained rate set to ``rate``."""
+    for ev_cls in (jev.PopulationEvaluator, tev.PopulationEvaluator):
+        monkeypatch.setattr(ev_cls, "_SUSTAINED_FLOPS_PER_S", rate)
+
+
+def _pair(data, monkeypatch, rate=OWN_RATE, **kw):
+    """(JAX evaluator, port evaluator) on one config, with both packages'
+    sustained rate set to ``rate``."""
+    set_rate(monkeypatch, rate)
     base = dict(num_classes=4, compute_dtype="float32", batch_size=32)
     base.update(kw)
-    return (jev.PopulationEvaluator(
-                data, JTrainConfig(**dict(base, launch_seconds_budget=0.0))),
+    return (jev.PopulationEvaluator(data, JTrainConfig(**base)),
             tev.PopulationEvaluator(data, TrainConfig(**base), device="cpu"))
 
 
 @pytest.mark.parametrize("patience", [2, 5])
 @pytest.mark.parametrize("chunk", [-1, 0, 3])
 def test_policy_functions_equal_jax(data, monkeypatch, patience, chunk):
-    """``_effective_chunk`` gives the JAX evaluator's chunk for every lane
-    count, epoch budget and bucket shape."""
-    for epochs in (12, 16, 39, 40, 300):
-        jax_ev, ev = _pair(data, monkeypatch, epochs=epochs,
-                           patience=patience, compaction_chunk=chunk)
-        for f, k in ((16, 3), (64, 5)):
-            for blocks in (1, 2, 3):
-                jspec = jax_ev._bucket_spec(f, k, blocks)
-                for pop in (1, 2, 4, 8, 16):
-                    assert ev._effective_chunk(pop) == \
-                        jax_ev._effective_chunk(pop, jspec), (
-                            epochs, f, k, blocks, pop)
+    """``_effective_chunk``, ``_est_epoch_seconds`` (rtol 1e-12) and
+    ``_should_split_lanes`` give the JAX evaluator's values for every lane
+    count, epoch budget, bucket shape and depth, at launch budgets of 0,
+    20 and 0.5 s, at the port's rate and at rates where the split and the
+    duration bound engage."""
+    for rate in (OWN_RATE,) + LOW_RATES:
+        for budget in (0.0, 20.0, 0.5):
+            for epochs in (12, 16, 39, 40, 300):
+                jax_ev, ev = _pair(data, monkeypatch, rate, epochs=epochs,
+                                   patience=patience, compaction_chunk=chunk,
+                                   launch_seconds_budget=budget)
+                _assert_policy_equal(jax_ev, ev, (rate, budget, epochs))
+
+
+def _assert_policy_equal(jax_ev, ev, case):
+    for f, k in ((16, 3), (64, 5)):
+        for blocks in (1, 2, 3):
+            jspec = jax_ev._bucket_spec(f, k, blocks)
+            spec = ev._bucket_spec(f, k, blocks)
+            sub = [dict(residual_blocks=b) for b in range(1, blocks + 1)]
+            assert ev._should_split_lanes(f, k, sub) == \
+                jax_ev._should_split_lanes(f, k, sub), (case, f, k, blocks)
+            for pop in (1, 2, 4, 8, 16):
+                np.testing.assert_allclose(
+                    ev._est_epoch_seconds(pop, spec),
+                    jax_ev._est_epoch_seconds(pop, jspec), rtol=1e-12)
+                assert ev._effective_chunk(pop, spec) == \
+                    jax_ev._effective_chunk(pop, jspec), (
+                        case, f, k, blocks, pop)
 
 
 def _stub(calls, with_lanes):
@@ -101,25 +133,48 @@ def _stub(calls, with_lanes):
     return run_bucket
 
 
-@pytest.mark.parametrize("kw", [
-    dict(compaction_chunk=-1, epochs=300, patience=5, max_models_per_program=4),
-    dict(compaction_chunk=-1, epochs=300, patience=5,
-         bucket_genes=("filters", "kernel_size")),
-    dict(compaction_chunk=-1, epochs=25, max_models_per_program=2),
-    dict(compaction_chunk=3, epochs=12, patience=2, pack_by_stop_epoch=False,
-         max_models_per_program=4),
-], ids=["default", "two_gene_buckets", "short_budget", "fixed_chunk"])
+PLAN_CASES = [
+    # (TrainConfig fields, sustained rate, a launch is compacted, every
+    # launch has one lane)
+    (dict(compaction_chunk=-1, epochs=300, patience=5,
+          max_models_per_program=4), OWN_RATE, False, False),
+    (dict(compaction_chunk=-1, epochs=300, patience=5,
+          bucket_genes=("filters", "kernel_size")), OWN_RATE, True, False),
+    (dict(compaction_chunk=-1, epochs=25, max_models_per_program=2),
+     OWN_RATE, False, False),
+    (dict(compaction_chunk=3, epochs=12, patience=2, pack_by_stop_epoch=False,
+          max_models_per_program=4), OWN_RATE, True, False),
+    # every bucket splits; the 20-s bound chunks the one-lane launches
+    (dict(compaction_chunk=-1, epochs=300, patience=5), 1e9, True, True),
+    # the split depends on the bucket; no duration bound
+    (dict(compaction_chunk=-1, epochs=25, launch_seconds_budget=0.0,
+          bucket_genes=("filters", "kernel_size")), 1e11, False, False),
+    # a small budget chunks the split launches
+    (dict(compaction_chunk=-1, epochs=300, patience=5,
+          launch_seconds_budget=0.5, max_models_per_program=4), 1e11, True,
+     True),
+    # every chunk one epoch
+    (dict(compaction_chunk=-1, epochs=25), 1e6, True, True),
+]
+
+
+@pytest.mark.parametrize("kw, rate, compacted, one_lane", PLAN_CASES, ids=[
+    "default", "two_gene_buckets", "short_budget", "fixed_chunk",
+    "split_rate_1e9", "split_no_budget_1e11", "split_small_budget_1e11",
+    "split_rate_1e6"])
 @pytest.mark.parametrize("draw", [5, 6])
-def test_launch_plan_equals_jax(data, monkeypatch, kw, draw):
+def test_launch_plan_equals_jax(data, monkeypatch, kw, rate, compacted,
+                                one_lane, draw):
     """The same genomes give the same launches in the same order (one-shot
     first, compacted last; stop-epoch packing from the first call's epochs
     on the second call), the same chunk records and the same fitness
-    list."""
+    list, at the port's rate and at rates where the heavy-lane split and
+    the launch-duration bound engage."""
     rng = np.random.default_rng(draw)
     space = all_genomes()
     genomes = [space[i] for i in rng.choice(len(space), 40, replace=False)]
     genomes += genomes[:3]  # a population may repeat a genome
-    jax_ev, ev = _pair(data, monkeypatch, **kw)
+    jax_ev, ev = _pair(data, monkeypatch, rate, **kw)
     jcalls, tcalls = [], []
     monkeypatch.setattr(jev.PopulationEvaluator, "_run_bucket",
                         _stub(jcalls, False))
@@ -135,9 +190,11 @@ def test_launch_plan_equals_jax(data, monkeypatch, kw, draw):
             dict(r, lanes=None) for r in jax_ev.timings[-1]["chunks"]]
         flags = [r["compacted"] for r in records]
         assert flags == sorted(flags)  # compacted launches last
-        # pop 8 buckets at 300 epochs and a fixed chunk really compact
-        assert any(flags) == (kw["compaction_chunk"] > 0
-                              or "bucket_genes" in kw)
+        # pop 8 buckets at 300 epochs, a fixed chunk and the duration
+        # bound really compact
+        assert any(flags) == compacted
+        # at low rates heavy buckets split into one-lane launches
+        assert ({r["pop"] for r in records} == {1}) == one_lane
         assert ev.timings[-1]["cache_hits"] == 0
         tcalls.clear()
         jcalls.clear()

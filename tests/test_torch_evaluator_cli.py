@@ -213,15 +213,24 @@ def test_real_cpu_run_on_default_synthetic_data(tmp_path):
 
 @pytest.mark.parametrize("extra, message", [
     (["--preset", "nsga_penalty", "--mesh-data", "2"], "requires --mesh"),
-    (["--preset", "nsga_penalty", "--launch-budget", "5"], "ROADMAP.md"),
+    (["--preset", "nsga_penalty", "--launch-budget", "5"], None),
 ], ids=["mesh", "launch_budget"])
 def test_options_the_port_does_not_carry_exit_naming_the_roadmap(extra,
                                                                  message):
-    """The launch-duration bound is out of the port: its option exits
-    naming ROADMAP.md. The mesh is in the port (tests/test_torch_mesh.py);
-    ``--mesh-data`` without ``--mesh`` exits with the JAX CLI's message."""
-    with pytest.raises(SystemExit, match=message):
-        tcli.main(extra + ["--fake-eval", "--device", "cpu"])
+    """Every option of the JAX CLI is in the port now: ``--mesh-data``
+    without ``--mesh`` exits with the JAX CLI's message, and
+    ``--launch-budget`` passes ``check_supported`` and reaches
+    ``TrainConfig.launch_seconds_budget`` (tests/test_torch_launch_plan.py
+    holds the other budgets)."""
+    if message is not None:
+        with pytest.raises(SystemExit, match=message):
+            tcli.main(extra + ["--fake-eval", "--device", "cpu"])
+        return
+    args = tcli.build_parser().parse_args(extra)
+    tcli.check_supported(args)
+    jargs = jcli.build_parser().parse_args(extra)
+    assert tcli.config_from_args(args).train.launch_seconds_budget == \
+        jcli.config_from_args(jargs).train.launch_seconds_budget == 5.0
 
 
 @pytest.mark.parametrize("extra", [

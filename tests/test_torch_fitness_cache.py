@@ -64,13 +64,21 @@ def _lines(path):
 
 
 def test_fingerprint_is_the_jax_packages_plus_backend_and_device(data):
-    """The JAX package's keys, plus the backend, the device and the launch
-    plan's settings (population forward, compaction chunk)."""
+    """The JAX package's keys (in format 3), plus the backend, the device
+    and the launch plan's settings (population forward, compaction chunk,
+    launch budget, lanes per launch, bucket genes, the split rule)."""
     want = jfc.evaluator_fingerprint(CFG, data)
+    rule = tev.PopulationEvaluator
     for device in ("cpu", "cuda"):
         got = tfc.evaluator_fingerprint(CFG, data, device)
-        assert got == {**want, "backend": "torch", "device": device,
-                       "parallel_impl": "grouped", "compaction_chunk": -1}
+        assert got == {**want, "format": 3, "backend": "torch",
+                       "device": device, "parallel_impl": "grouped",
+                       "compaction_chunk": -1, "launch_seconds_budget": 20.0,
+                       "max_models_per_program": 16,
+                       "bucket_genes": ["filters", "kernel_size",
+                                        "residual_blocks"],
+                       "split_flops_per_s": rule._SUSTAINED_FLOPS_PER_S,
+                       "split_min_seconds": 2.0}
     assert tfc.dataset_fingerprint(data) == jfc.dataset_fingerprint(data)
 
 
@@ -115,14 +123,25 @@ def test_torn_tail_is_skipped_and_repaired_as_in_the_jax_package(tmp_path,
     dict(shift=1e-3),
     dict(cfg=dict(parallel_impl="vmap")),
     dict(cfg=dict(compaction_chunk=3)),
-], ids=["device", "epochs", "data", "vmap", "compaction_chunk"])
-def test_foreign_fingerprints_are_refused(tmp_path, data, change):
+    dict(cfg=dict(launch_seconds_budget=8.0)),
+    dict(cfg=dict(max_models_per_program=4)),
+    dict(cfg=dict(bucket_genes=("filters", "kernel_size"))),
+    dict(rule=("_SUSTAINED_FLOPS_PER_S", 1e12)),
+    dict(rule=("_MIN_SPLIT_PROGRAM_SECONDS", 4.0)),
+], ids=["device", "epochs", "data", "vmap", "compaction_chunk",
+        "launch_seconds_budget", "max_models_per_program", "bucket_genes",
+        "split_rate", "split_threshold"])
+def test_foreign_fingerprints_are_refused(tmp_path, data, monkeypatch,
+                                          change):
     """A cache written under another device, training config, dataset,
-    population forward or compaction setting raises ``ValueError`` instead
-    of replaying."""
+    population forward or launch plan (compaction setting, launch budget,
+    lanes per launch, bucket genes, the split rule's rate or threshold)
+    raises ``ValueError`` instead of replaying."""
     path = str(tmp_path / "cache.jsonl")
     tfc.FitnessCache(path, tfc.evaluator_fingerprint(CFG, data, "cpu")
                      ).put_many(ENTRIES)
+    if "rule" in change:
+        monkeypatch.setattr(tev.PopulationEvaluator, *change["rule"])
     fp = tfc.evaluator_fingerprint(
         dataclasses.replace(CFG, **change.get("cfg", {})),
         dict(data, x_train=data["x_train"] + change.get("shift", 0.0)),

@@ -88,8 +88,8 @@ def test_main_path_runs_with_pandas_sklearn_h5py_and_jax_blocked(tmp_path):
                   "algorithms.initializers", "surrogate.gp",
                   "surrogate.kernels", "surrogate.manager",
                   "utils.reporting", "utils.xlsx", "utils.checkpoint",
-                  "utils.fitness_cache", "parallel.mesh",
-                  "core.rng"):
+                  "utils.fitness_cache", "utils.profiling",
+                  "parallel.mesh", "native.build", "ops", "core.rng"):
             importlib.import_module("cmoop_audio_processing_torch." + m)
         from cmoop_audio_processing_torch.cli import extract_features
         from cmoop_audio_processing_torch.cli.main import main

@@ -151,19 +151,21 @@ def test_launch_plan_on_mesh_equals_jax(data, monkeypatch, shape, chunk):
     """On a mesh the port plans the JAX evaluator's launches: lanes padded
     to a multiple of the pop width after the power-of-two rounding, every
     launch one-shot (compaction forced off), the same chunk records and
-    fitness list; a data axis > 1 forces the vmap forward."""
+    fitness list; a data axis > 1 forces the vmap forward. Neither the
+    heavy-lane split nor the duration bound applies on a mesh: both
+    packages' sustained rate is set low enough that both would without
+    one."""
     from cmoop_audio_processing_tpu.core.config import TrainConfig as JCfg
     from cmoop_audio_processing_tpu.engine import evaluator as jev
     from cmoop_audio_processing_tpu.parallel import mesh as jm
 
-    monkeypatch.setattr(jev.PopulationEvaluator, "_should_split_lanes",
-                        lambda self, f, k, sub: False)
+    for ev_cls in (jev.PopulationEvaluator, tev.PopulationEvaluator):
+        monkeypatch.setattr(ev_cls, "_SUSTAINED_FLOPS_PER_S", 1e6)
     kw = dict(num_classes=4, compute_dtype="float32", batch_size=32,
               epochs=300, patience=5, compaction_chunk=chunk,
               max_models_per_program=16)
-    jax_ev = jev.PopulationEvaluator(
-        data, JCfg(**kw, launch_seconds_budget=0.0),
-        mesh=jm.population_mesh(*shape))
+    jax_ev = jev.PopulationEvaluator(data, JCfg(**kw),
+                                     mesh=jm.population_mesh(*shape))
     ev = tev.PopulationEvaluator(data, TrainConfig(**kw),
                                  mesh=tm.population_mesh(*shape, devices=CPU8))
     impl = "vmap" if shape[1] > 1 else "grouped"
@@ -184,7 +186,8 @@ def test_launch_plan_on_mesh_equals_jax(data, monkeypatch, shape, chunk):
         assert [dict(r, lanes=None) for r in records] == [
             dict(r, lanes=None) for r in jax_ev.timings[-1]["chunks"]]
         assert not any(r["compacted"] for r in records)
-        assert ev._effective_chunk(16) == 0
+        assert ev._effective_chunk(16, ev._bucket_spec(64, 5)) == 0
+        assert not ev._should_split_lanes(64, 5, genomes)
         tcalls.clear()
         jcalls.clear()
 
