@@ -11,7 +11,8 @@
 * the evaluator's launch planner on both splits: lane compaction, the vmap
   setting, fitness-cache replay, the card's executed training FLOP rate;
 * the device mesh on the one card: pop shards and data shards;
-* the heavy-lane split and the launch-duration bound on the BirdCLEF split.
+* the heavy-lane split and the launch-duration bound on the BirdCLEF split;
+* the exhaustive sweep's template B, all 288 genomes.
 
     python3 chip_smoke.py [--seed N]
 
@@ -107,7 +108,15 @@ Phases (any failure exits non-zero; nothing is caught):
              must equal each genome alone and the segmented run bit for
              bit; trainings per hour of fused and split, the split's drift
              from fused and the executed one-lane rates at BirdCLEF and KWS
-             beside the rate the plan assumes are printed.
+             beside the rate the plan assumes are printed;
+15. exhaustive — the port's exhaustive sweep
+             (``examples/run_exhaustive.sweep``) on template B at 2 epochs,
+             all 288 genomes on the synthetic KWS shape (2000 rows of
+             44x13): 288 rows, each genome's ``Size_MB`` equal to the JAX
+             package's committed ``examples/exhaustive/exhaustive_B_288.csv``
+             string for string, and every launch the split rule's lane
+             count; the launches, one-lane launches, seconds and trainings
+             per hour are printed beside the card. Budget 150 s.
 
 Launch counts are zeroed just before each path (phase 3, phase 6, phase 9)
 and read just after it (phase 5, phase 8, phase 11): each kernel of a path
@@ -1527,6 +1536,39 @@ def phase_split(device: str, data_dir: str, bird_dir: str, smi: str) -> None:
     log(f"[split] phase {time.perf_counter() - t_phase:.2f} s")
 
 
+EXHAUSTIVE_EPOCHS = 2
+EXHAUSTIVE_BUDGET_S = 150
+
+
+def phase_exhaustive(smi: str) -> None:
+    """The exhaustive sweep of template B on the card, at
+    ``EXHAUSTIVE_EPOCHS`` epochs: the table's sizes against the JAX
+    package's committed table, and each launch against the split rule."""
+    from cmoop_audio_processing_torch.examples import run_exhaustive as rx
+
+    t0 = time.perf_counter()
+    rows, ev = rx.sweep("B", epochs=EXHAUSTIVE_EPOCHS, seed=7, fake=False,
+                        device="cuda")
+    secs = time.perf_counter() - t0
+    if len(rows) != 288:
+        raise AssertionError(f"[exhaustive] {len(rows)} rows, want 288")
+    want = {k: r["Size_MB"] for k, r in rx.text_table(os.path.join(
+        ROOT, "examples", "exhaustive", "exhaustive_B_288.csv")).items()}
+    off = [r for r in rows if repr(r["Size_MB"]) != want[rx.genome_key_of_row(r)]]
+    if off:
+        raise AssertionError(f"[exhaustive] {len(off)} sizes differ from the "
+                             f"JAX table, first {off[0]}")
+    check_split_rule("exhaustive", ev, [(rx.all_genomes(), ev.timings[-1])])
+    chunks = ev.timings[-1]["chunks"]
+    log(f"[exhaustive] template B, {EXHAUSTIVE_EPOCHS} epochs: 288 rows, "
+        f"sizes equal to the JAX table; {len(chunks)} launches "
+        f"({sum(c['pop'] == 1 for c in chunks)} one-lane), "
+        f"{ev.timings[-1]['seconds']:.2f} s evaluate, {secs:.2f} s phase, "
+        f"{288 * 3600 / ev.timings[-1]['seconds']:.1f} trainings/h; card: "
+        f"{smi}" + ("" if secs <= EXHAUSTIVE_BUDGET_S else
+                    f"; OVER the {EXHAUSTIVE_BUDGET_S}-s budget"))
+
+
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
     the FFT route. ``launches`` keeps the first path's count,
@@ -1605,6 +1647,7 @@ def main(argv=None) -> int:
     phase_planner("cuda", data_dir, bird_dir, smi)
     phase_mesh("cuda", data_dir, smi)
     phase_split("cuda", data_dir, bird_dir, smi)
+    phase_exhaustive(smi)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

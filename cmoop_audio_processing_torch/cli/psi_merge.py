@@ -19,15 +19,18 @@ Size_MB, FPR + the six genome columns; psi_init_sa_nsga.py:365-379).
 truncates to the stage-2 population size. A ``.xlsx`` output filename
 produces a real workbook even without an Excel engine (utils/xlsx.py).
 
-A copy of cmoop_audio_processing_tpu/cli/psi_merge.py. It is an offline tool
-that needs pandas, imported inside its functions, so the rest of the package
-imports without it.
+The port's copy of cmoop_audio_processing_tpu/cli/psi_merge.py, without
+pandas: tables are read by utils/xlsx.read_rows (pandas' names and values)
+and merged as row lists, and the output has the bytes pandas writes, so the
+merge runs where pandas is not installed.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import sys
+from typing import Dict, List
 
 from ..core.genome import GENE_ORDER
 
@@ -35,60 +38,79 @@ REQUIRED = ["Accuracy", "Size_MB", "FPR", *GENE_ORDER]
 
 
 def merge(paths, dedup: bool = False, limit: int | None = None,
-          interleave: bool = False):
+          interleave: bool = False) -> List[Dict]:
     """Concatenate stage-1 fronts into the stage-2 seed table.
 
     ``interleave`` picks rows round-robin across the fronts instead of
     front-by-front, so a ``--limit`` keeps members of every bi-objective
     front rather than exhausting the first file (the reference's manual
     merge is unspecified; balanced selection keeps the 2-stage seed diverse
-    when the stage-2 population is smaller than the union). Returns a
-    pandas DataFrame."""
-    import pandas as pd
-
+    when the stage-2 population is smaller than the union). Returns the
+    rows as dicts of the ``REQUIRED`` columns."""
     from ..utils.xlsx import UnreadableTableError, read_rows
 
     frames = []
     for path in paths:
         try:
             columns, rows = read_rows(path)
-            df = pd.DataFrame(rows, columns=columns)
         except UnreadableTableError:
             # Zero-byte/corrupt workbook, torn sheet XML, empty CSV, or any
             # other parse error — read_rows normalizes them all,
             # so one bad stage-1 export degrades to a skip, not a crash
             # (a missing file still raises: that is a caller typo, not a
             # degraded export).
-            df = None
-        if df is None or len(df.columns) == 0:
+            columns = []
+        if not columns:
             # An infeasible stage-1 run exports an empty front (the reference
             # warns and continues, nsga_penalty.py:768-770); skip it.
             print(f"psi-merge: {path} is empty (no feasible front), skipping",
                   file=sys.stderr)
             continue
-        missing = [c for c in REQUIRED if c not in df.columns]
+        missing = [c for c in REQUIRED if c not in columns]
         if missing:
             raise ValueError(f"{path} missing columns {missing}")
-        if len(df) == 0:
+        if not rows:
             print(f"psi-merge: {path} has no rows, skipping", file=sys.stderr)
             continue
-        frames.append(df[REQUIRED])
+        at = [columns.index(c) for c in REQUIRED]
+        frames.append([dict(zip(REQUIRED, (r[j] for j in at))) for r in rows])
     if not frames:
         raise ValueError(f"no non-empty stage-1 fronts among {list(paths)}")
     if interleave:
-        order = []
-        for i in range(max(len(f) for f in frames)):
-            for f in frames:
-                if i < len(f):
-                    order.append(f.iloc[i])
-        out = pd.DataFrame(order).reset_index(drop=True)
+        out = [f[i] for i in range(max(len(f) for f in frames))
+               for f in frames if i < len(f)]
     else:
-        out = pd.concat(frames, ignore_index=True)
+        out = [r for f in frames for r in f]
     if dedup:
-        out = out.drop_duplicates(subset=list(GENE_ORDER), keep="first")
+        seen = set()
+        kept = []
+        for r in out:
+            key = tuple(r[g] for g in GENE_ORDER)
+            if key not in seen:
+                seen.add(key)
+                kept.append(r)
+        out = kept
     if limit is not None:
-        out = out.head(limit)
-    return out.reset_index(drop=True)
+        out = out[:limit]
+    return out
+
+
+def write_table(path: str, rows: List[Dict]) -> None:
+    """The merged rows as ``DataFrame.to_csv(index=False)`` or, for an
+    ``.xlsx``/``.xls`` name, a workbook (utils/xlsx.py) would hold them. A
+    missing cell (NaN) is written empty, as pandas writes it."""
+    body = [[r[c] for c in REQUIRED] for r in rows]
+    if path.endswith((".xlsx", ".xls")):
+        from ..utils.xlsx import write_xlsx
+
+        # the stage-2 seed is a REAL Final.xlsx (psi_init_sa_nsga.py:365)
+        write_xlsx(path, [("Sheet1", (list(REQUIRED), body))])
+        return
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(REQUIRED)
+        for r in body:
+            w.writerow(["" if v != v else v for v in r])
 
 
 def main(argv=None) -> int:
@@ -101,22 +123,9 @@ def main(argv=None) -> int:
                    help="pick rows round-robin across fronts (balanced seed)")
     args = p.parse_args(argv)
 
-    df = merge(args.fronts, args.dedup, args.limit, args.interleave)
-    if args.out.endswith((".xlsx", ".xls")):
-        try:
-            df.to_excel(args.out, index=False)
-        except ImportError:
-            # no Excel engine installed: stdlib OOXML writer, so the
-            # stage-2 seed is a REAL Final.xlsx (psi_init_sa_nsga.py:365)
-            from ..utils.xlsx import write_xlsx
-
-            write_xlsx(args.out, [("Sheet1", (
-                list(df.columns),
-                [list(t) for t in df.itertuples(index=False, name=None)],
-            ))])
-    else:
-        df.to_csv(args.out, index=False)
-    print(f"merged {len(df)} stage-1 solutions -> {args.out}")
+    rows = merge(args.fronts, args.dedup, args.limit, args.interleave)
+    write_table(args.out, rows)
+    print(f"merged {len(rows)} stage-1 solutions -> {args.out}")
     return 0
 
 

@@ -226,3 +226,50 @@ def test_mobo_export_and_compare_run_with_pandas_sklearn_h5py_and_jax_blocked(
                      "all_generations.csv", "mobo_iteration_2.csv"):
             assert (run_dir / name).exists(), (preset, name)
     assert (tmp_path / "out" / "deployed" / "model.npz").exists()
+
+
+def test_validation_scripts_run_with_pandas_sklearn_h5py_and_jax_blocked(
+        tmp_path):
+    """The port's validation scripts import, and the pieces the card runs
+    without pandas do run, with the optional packages and JAX unimportable:
+    ``psi_merge`` (run_all8's stage-1 merge) on the committed stage-1
+    fronts, and the exhaustive sweep, report and comparison."""
+    stage1 = [os.path.join(ROOT, "examples", "all8", f"front_{n}_nsga_1.csv")
+              for n in ("acc_size", "acc_fpr", "size_fpr")]
+    committed = os.path.join(ROOT, "examples", "exhaustive")
+    script = textwrap.dedent(f"""
+        import importlib, os, sys
+        BLOCKED = {sorted(LAZY_ONLY | FORBIDDEN)!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{{name}} is blocked")
+
+        sys.meta_path.insert(0, Block())
+        for m in ("run_exhaustive", "run_all8", "make_kws_corpus",
+                  "make_birdclef_corpus"):
+            importlib.import_module("cmoop_audio_processing_torch.examples." + m)
+        from cmoop_audio_processing_torch.cli import psi_merge
+        from cmoop_audio_processing_torch.examples import run_exhaustive
+
+        assert psi_merge.main({stage1!r} + ["--dedup", "--limit", "10",
+                              "--interleave", "--out", "Final.csv"]) == 0
+        assert run_exhaustive.main(["--fake-eval", "--device", "cpu",
+                                    "--out", "exh"]) == 0
+        assert run_exhaustive.main(["--out", "exh", "--compare-to",
+                                    {committed!r}]) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    with open(tmp_path / "Final.csv") as f:
+        assert f.readline().startswith("Accuracy,Size_MB,FPR,filters")
+    for name in ("exhaustive_A_288.csv", "exhaustive_B_288.csv",
+                 "exhaustive_report.json", "meta.json"):
+        assert (tmp_path / "exh" / name).exists(), name
