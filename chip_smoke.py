@@ -12,7 +12,8 @@
   setting, fitness-cache replay, the card's executed training FLOP rate;
 * the device mesh on the one card: pop shards and data shards;
 * the heavy-lane split and the launch-duration bound on the BirdCLEF split;
-* the exhaustive sweep's template B, all 288 genomes.
+* the exhaustive sweep's template B, all 288 genomes;
+* the all-8 harness at a toy size, its run record and its resume.
 
     python3 chip_smoke.py [--seed N]
 
@@ -116,7 +117,18 @@ Phases (any failure exits non-zero; nothing is caught):
              package's committed ``examples/exhaustive/exhaustive_B_288.csv``
              string for string, and every launch the split rule's lane
              count; the launches, one-lane launches, seconds and trainings
-             per hour are printed beside the card. Budget 150 s.
+             per hour are printed beside the card. Budget 150 s;
+16. all8   — the all-8 harness (``examples/run_all8``) at a toy size on the
+             card: pop 4, one generation, 2 epochs, fused launches
+             (``--compaction-chunk 0``). Every search's entry in the run
+             record ``all8_run.json`` must name the card; a ``--resume``
+             must run no search and leave every front, ``Final.csv`` and
+             the report as they were; with the first SA-family entry that
+             trained taken out of the record, a ``--resume`` must run that
+             search alone, training nothing (cache hits only), and write
+             its front and the report byte for byte; a resume under another
+             ``--compaction-chunk`` must be refused, by the run record and,
+             with the record gone, by the fitness cache. Budget 90 s.
 
 Launch counts are zeroed just before each path (phase 3, phase 6, phase 9)
 and read just after it (phase 5, phase 8, phase 11): each kernel of a path
@@ -1569,6 +1581,121 @@ def phase_exhaustive(smi: str) -> None:
                     f"; OVER the {EXHAUSTIVE_BUDGET_S}-s budget"))
 
 
+ALL8_EPOCHS = 2
+ALL8_BUDGET_S = 90
+
+
+def all8_outputs(out: str) -> dict:
+    """The bytes of every front, ``Final.csv`` and the report in ``out``."""
+    from cmoop_audio_processing_torch.core.config import get_preset
+    from cmoop_audio_processing_torch.examples import run_all8 as ra
+
+    presets = ra.STAGE1 + [p for _, p, _ in ra.METHODS]
+    paths = [ra.front_path(get_preset(p), out) for p in presets]
+    paths += [os.path.join(out, "Final.csv"),
+              os.path.join(out, "compare_report_all8.json")]
+    got = {}
+    for p in paths:
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                got[os.path.relpath(p, out)] = f.read()
+    return got
+
+
+def phase_all8(name: str, smi: str) -> None:
+    """``run_all8`` at a toy size, fused, on the card; then its resume."""
+    from cmoop_audio_processing_torch.examples import run_all8 as ra
+
+    t_phase = time.perf_counter()
+    out = os.path.join(WORK, "all8")
+    shutil.rmtree(out, ignore_errors=True)
+    base = ["--pop", "4", "--gen", "1", "--epochs", str(ALL8_EPOCHS),
+            "--seed", "7", "--device", "cuda", "--out", out]
+    argv = base + ["--compaction-chunk", "0"]
+    record_path = os.path.join(out, ra.RUN_RECORD)
+    t0 = time.perf_counter()
+    rc = ra.main(argv)
+    first_s = time.perf_counter() - t0
+    with open(record_path) as f:
+        record = json.load(f)
+    presets = ra.STAGE1 + [p for _, p, _ in ra.METHODS]
+    got = [e["preset"] for e in record["searches"]]
+    if got != presets:
+        raise AssertionError(f"[all8] run record holds {got}, want {presets}")
+    off = [e["preset"] for e in record["searches"]
+           if (e["card"], e["nvidia_smi"]) != (name, smi)]
+    if off:
+        raise AssertionError(f"[all8] entries not naming {smi!r}: {off}")
+    before = all8_outputs(out)
+    # the resume check drops the first SA-family entry that trained
+    victim = next(e["preset"] for e in record["searches"]
+                  if e["preset"] in [p for _, p, _ in ra.METHODS[:6]]
+                  and e["trainings"])
+    ran = []
+    real = ra.run_one
+
+    def counting(cfg, *a, **k):
+        ran.append(cfg.name)
+        return real(cfg, *a, **k)
+
+    ra.run_one = counting
+    try:
+        t0 = time.perf_counter()
+        rc_skip = ra.main(argv + ["--resume"])
+        skip_s = time.perf_counter() - t0
+        if ran or rc_skip != rc or all8_outputs(out) != before:
+            raise AssertionError(f"[all8] a resume of a finished run ran "
+                                 f"{ran} (rc {rc_skip}, first run {rc}) or "
+                                 f"changed its outputs")
+        record["searches"] = [e for e in record["searches"]
+                              if e["preset"] != victim]
+        ra.save_record(record, out)
+        t0 = time.perf_counter()
+        rc_replay = ra.main(argv + ["--resume"])
+        replay_s = time.perf_counter() - t0
+    finally:
+        ra.run_one = real
+    with open(record_path) as f:
+        entry = [e for e in json.load(f)["searches"]
+                 if e["preset"] == victim][0]
+    after = all8_outputs(out)
+    changed = sorted(k for k in set(before) | set(after)
+                     if before.get(k) != after.get(k))
+    if (ran != [victim] or entry["trainings"] or entry["launches"]
+            or not entry["cache_hits"] or changed or rc_replay != rc):
+        raise AssertionError(
+            f"[all8] resume without {victim}'s entry ran {ran}, "
+            f"trained {entry['trainings']} in {entry['launches']} launches "
+            f"with {entry['cache_hits']} cache hits (rc {rc_replay}); "
+            f"changed: {changed}")
+    for drop_record, refusal in ((False, "--resume refused"),
+                                 (True, "different training config")):
+        if drop_record:
+            os.unlink(record_path)
+        try:
+            ra.main(base + ["--compaction-chunk", "2", "--resume"])
+        except (SystemExit, ValueError) as e:
+            why = str(e).splitlines()[0]
+            if refusal not in why:
+                raise
+        else:
+            raise AssertionError("[all8] a resume under another plan ran")
+        log(f"[all8] resume under --compaction-chunk 2 refused"
+            f"{' (record removed)' if drop_record else ''}: {why[:160]}")
+    entries = record["searches"]
+    total = time.perf_counter() - t_phase
+    log(f"[all8] pop 4, 1 generation, {ALL8_EPOCHS} epochs, fused: "
+        f"{len(presets)} searches in {first_s:.2f} s, "
+        f"{sum(e['trainings'] for e in entries)} trainings in "
+        f"{sum(e['launches'] for e in entries)} launches, verdict rc {rc}, "
+        f"{len(before)} outputs; resume of the finished run {skip_s:.2f} s "
+        f"(no search run); {victim} replayed from its cache "
+        f"({entry['cache_hits']} hits, 0 trainings) in {replay_s:.2f} s, "
+        f"outputs byte-equal; phase {total:.2f} s; card: {smi}"
+        + ("" if total <= ALL8_BUDGET_S else
+           f"; OVER the {ALL8_BUDGET_S}-s budget"))
+
+
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
     the FFT route. ``launches`` keeps the first path's count,
@@ -1648,6 +1775,7 @@ def main(argv=None) -> int:
     phase_mesh("cuda", data_dir, smi)
     phase_split("cuda", data_dir, bird_dir, smi)
     phase_exhaustive(smi)
+    phase_all8(name, smi)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

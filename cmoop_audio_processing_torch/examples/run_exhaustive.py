@@ -41,9 +41,10 @@ Beyond the JAX script's options:
   tables in ``--out`` against another run's (the JAX package's committed
   examples/exhaustive/, say) with ``compare_truths`` and writes meta.json
   (the commit, the run records, the comparison). Each ``--yardstick CSV``
-  is a second table of this device (another seed), the measure of its own
-  seed-to-seed spread; each ``--beside CSV`` (another launch plan, say) is
-  held against ``--out``'s table of its template. A table's run record is
+  is another table of this device (another seed), the measure of its own
+  seed-to-seed spread, and a template may have several; each ``--beside
+  CSV`` (another launch plan, say) is held against ``--out``'s table of
+  its template. A table's run record is
   read from beside it: exhaustive_B_288<sfx>.csv ->
   exhaustive_B_run<sfx>.json.
 
@@ -178,8 +179,6 @@ def genome_key_of_row(row) -> tuple:
 def run_record(template: str, ev, seconds: float, args) -> Dict:
     """What a trained sweep measured: its launches, stop epochs and rate,
     beside the device it ran on."""
-    import torch
-
     t = ev.timings[-1]
     chunks = t["chunks"]
     trained = t["n_genomes"] - t["cache_hits"]
@@ -207,14 +206,30 @@ def run_record(template: str, ev, seconds: float, args) -> Dict:
                                  if t["seconds"] else 0.0),
         "plan_flops_per_s": ev._SUSTAINED_FLOPS_PER_S,
     }
-    if ev.device.type == "cuda":
-        rec["card"] = torch.cuda.get_device_name(ev.device)
+    rec.update(device_record(ev.device))
+    return rec
+
+
+def device_record(device) -> Dict:
+    """``{"card", "nvidia_smi"}``: on CUDA the card's name and
+    ``nvidia-smi --query-gpu=name,power.limit``'s line for it, else None."""
+    import torch
+
+    rec = {"card": None, "nvidia_smi": None}
+    if device is not None and torch.device(device).type == "cuda":
+        rec["card"] = torch.cuda.get_device_name(device)
         rec["nvidia_smi"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"],
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
     return rec
+
+
+def _empty(path: str) -> bool:
+    """An empty front: the search wrote a blank file (no feasible row)."""
+    with open(path) as f:
+        return not f.read().strip()
 
 
 def report_on(truths: Dict[str, List[Dict]], all8_dir: str, epochs: int,
@@ -238,9 +253,9 @@ def report_on(truths: Dict[str, List[Dict]], all8_dir: str, epochs: int,
         for spec_str in fronts:
             name, fname = spec_str.split("=")
             fpath = os.path.join(all8_dir, fname)
-            if not os.path.exists(fpath):
-                print(f"[exhaustive] missing front {fpath}, skipping",
-                      file=sys.stderr)
+            if not os.path.exists(fpath) or _empty(fpath):
+                print(f"[exhaustive] missing or empty front {fpath}, "
+                      "skipping", file=sys.stderr)
                 continue
             fr = read_table(fpath)
             method_fronts[name] = (template, fr,
@@ -288,6 +303,18 @@ def text_table(path: str) -> Dict[tuple, Dict[str, str]]:
                 for r in csv.DictReader(f)}
 
 
+def spread(d: np.ndarray) -> Dict[str, float]:
+    """Median, p90 and max of ``d``."""
+    return {"median": float(np.median(d)),
+            "p90": float(np.percentile(d, 90)), "max": float(d.max())}
+
+
+def share_close(d_acc: np.ndarray) -> float:
+    """The share of ``d_acc`` within ``CLOSE_ACC``; 1e-6 absorbs float32
+    accuracies (0.9420000314712524)."""
+    return float(np.mean(d_acc <= CLOSE_ACC + 1e-6))
+
+
 def compare_tables(got_csv: str, want_csv: str) -> Dict:
     """One template's sweep against another run's, genome by genome:
     ``Size_MB`` string for string, the spread of |d accuracy| and |d FPR|
@@ -299,10 +326,6 @@ def compare_tables(got_csv: str, want_csv: str) -> Dict:
 
     def col(t, name):
         return np.array([float(t[k][name]) for k in keys])
-
-    def spread(d):
-        return {"median": float(np.median(d)),
-                "p90": float(np.percentile(d, 90)), "max": float(d.max())}
 
     d_acc = np.abs(col(got, "Accuracy") - col(want, "Accuracy"))
     d_fpr = np.abs(col(got, "FPR") - col(want, "FPR"))
@@ -316,9 +339,7 @@ def compare_tables(got_csv: str, want_csv: str) -> Dict:
                           for k in keys),
         "abs_d_accuracy": spread(d_acc),
         "abs_d_fpr": spread(d_fpr),
-        # 1e-6 absorbs float32 accuracies (0.9420000314712524)
-        "share_within_0.01_accuracy": float(
-            np.mean(d_acc <= CLOSE_ACC + 1e-6)),
+        "share_within_0.01_accuracy": share_close(d_acc),
         "failed": int(failed_got.sum()), "failed_ref": int(failed_want.sum()),
         "failed_both": int((failed_got & failed_want).sum()),
         "true_front": len(front_got), "true_front_ref": len(front_want),
@@ -348,12 +369,15 @@ def compare_truths(out_dir: str, ref_dir: str, yardsticks=(),
     ``all8_dir`` through ``report_on`` from their CSVs (the same fronts and
     the same parsing on both sides), method by method, with whether
     2_stage_MOBO's GD and IGD stay below MOBO's against each truth
-    (reported, not gated). ``yardsticks`` are second tables of
-    ``out_dir``'s device (another seed), exhaustive_<T>_288*.csv: the bound
-    on the distance to ``ref_dir`` is 1.5x this device's own seed-to-seed
-    median and p90 of |d accuracy| on template B, plus 0.002 (one
-    validation sample), held for B and recorded for A; a template-A
-    yardstick adds A's own bound beside it."""
+    (reported, not gated). ``yardsticks`` are more tables of ``out_dir``'s
+    device (other seeds), exhaustive_<T>_288*.csv, each held against
+    ``out_dir``'s table of its template: a template's bound on the distance
+    to ``ref_dir`` is 1.5x the largest median and the largest p90 of
+    |d accuracy| over its pairs, plus 0.002 (one validation sample).
+    Template B's bound is held for B and recorded for A; template-A
+    yardsticks add A's own bound beside it. ``yardstick`` holds each
+    template's pair, or with several pairs for a template, each pair by
+    its table's name."""
     tables = {tag: {t: os.path.join(d, f"exhaustive_{t}_288.csv")
                     for t in ("B", "A")}
               for tag, d in (("run", out_dir), ("ref", ref_dir))}
@@ -372,8 +396,8 @@ def compare_truths(out_dir: str, ref_dir: str, yardsticks=(),
     cmp["mobo_ordering_holds"] = {tag: _mobo_ordering_holds(r)
                                   for tag, r in reports.items()}
 
-    def bound_of(yard):
-        return {q: 1.5 * yard["abs_d_accuracy"][q] + 0.002
+    def bound_of(pairs):
+        return {q: 1.5 * max(y["abs_d_accuracy"][q] for y in pairs) + 0.002
                 for q in ("median", "p90")}
 
     def against(bound, templates):
@@ -382,10 +406,15 @@ def compare_truths(out_dir: str, ref_dir: str, yardsticks=(),
                 {t: {q: cmp["templates"][t]["abs_d_accuracy"][q] - bound[q]
                      for q in bound} for t in templates})
 
-    yard = {_template_of(y): compare_tables(tables["run"][_template_of(y)], y)
-            for y in yardsticks}
+    yard: Dict[str, Dict[str, Dict]] = {}
+    for y in yardsticks:
+        t = _template_of(y)
+        yard.setdefault(t, {})[os.path.basename(y)] = compare_tables(
+            tables["run"][t], y)
     if yard:
-        cmp["yardstick"] = yard
+        cmp["yardstick"] = {t: next(iter(p.values())) if len(p) == 1 else p
+                            for t, p in yard.items()}
+    yard = {t: list(p.values()) for t, p in yard.items()}
     if "B" in yard:
         bound = bound_of(yard["B"])
         cmp["bound_abs_d_accuracy"] = bound

@@ -273,3 +273,48 @@ def test_validation_scripts_run_with_pandas_sklearn_h5py_and_jax_blocked(
     for name in ("exhaustive_A_288.csv", "exhaustive_B_288.csv",
                  "exhaustive_report.json", "meta.json"):
         assert (tmp_path / "exh" / name).exists(), name
+
+
+def test_all8_resume_export_and_comparison_run_with_jax_blocked(tmp_path):
+    """The all-8 harness's additions run with the optional packages and JAX
+    unimportable: a closed-form replica with ``--compaction-chunk``, its
+    ``--resume`` (every search skipped), ``--export`` and ``--compare-to``
+    against the JAX package's committed reports and both exhaustive
+    truths."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        BLOCKED = {sorted(LAZY_ONLY | FORBIDDEN)!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{{name}} is blocked")
+
+        sys.meta_path.insert(0, Block())
+        from cmoop_audio_processing_torch.examples import run_all8
+
+        argv = ["--fake-eval", "--pop", "4", "--gen", "1", "--seed", "11",
+                "--device", "cpu", "--compaction-chunk", "0", "--out", "run"]
+        rc = run_all8.main(argv)
+        assert run_all8.main(argv + ["--resume"]) == rc
+        assert run_all8.main(["--out", "run", "--export", "art"]) == 0
+        assert run_all8.main(["--out", "art", "--compare-to",
+                              {os.path.join(ROOT, "examples")!r}]) == 0
+        with open(os.path.join("art", "meta.json")) as f:
+            meta = json.load(f)
+        assert len(meta["jax_reports"]) == 5, meta["jax_reports"]
+        assert meta["ordering"]["exit_code"] == rc
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    assert "in the run record, not run again" in proc.stderr
+    for name in ["Final.csv", "compare_report_all8.json", "all8_run.json"] + [
+            f"front_{p}.csv" for p in ("acc_size_nsga_1", "mobo_penalty",
+                                       "psi_mobo_2", "sa_nsga_penalty")]:
+        assert (tmp_path / "art" / name).exists(), name
