@@ -13,7 +13,9 @@
 * the device mesh on the one card: pop shards and data shards;
 * the heavy-lane split and the launch-duration bound on the BirdCLEF split;
 * the exhaustive sweep's template B, all 288 genomes;
-* the all-8 harness at a toy size, its run record and its resume.
+* the all-8 harness at a toy size, its run record and its resume;
+* the all-8 harness on the exhaustive tables (no training) at its
+  committed volume, its GP fits on the card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -128,7 +130,20 @@ Phases (any failure exits non-zero; nothing is caught):
              search alone, training nothing (cache hits only), and write
              its front and the report byte for byte; a resume under another
              ``--compaction-chunk`` must be refused, by the run record and,
-             with the record gone, by the fitness cache. Budget 90 s.
+             with the record gone, by the fitness cache. Budget 90 s;
+17. oracle — ``run_all8 --table-eval`` at seed 7, pop 10, 8 generations:
+             every fitness read from the JAX package's exhaustive tables
+             (template A for stage 1 and MOBO, B for the SA family), the
+             GP fits on the card. It must exit with the harness's verdict
+             (0 or 1); the run record must hold all 11 searches, each naming
+             the card; every front row must be its template's table row in
+             ``Size_MB``, rows whose accuracy or FPR differ (the SA family's
+             surrogate-predicted survivors) counted, and a 2-stage SA
+             front's PSI seed rows may hold the template-A table's fitness.
+             Each method's GD and IGD against the truth are printed beside
+             the committed CPU values for seed 7
+             (``examples/artifacts/search_parity/seed_7.json``), with the
+             GP refits' seconds. Budget 180 s.
 
 Launch counts are zeroed just before each path (phase 3, phase 6, phase 9)
 and read just after it (phase 5, phase 8, phase 11): each kernel of a path
@@ -149,6 +164,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1696,6 +1712,96 @@ def phase_all8(name: str, smi: str) -> None:
            f"; OVER the {ALL8_BUDGET_S}-s budget"))
 
 
+ORACLE_BUDGET_S = 180
+PARITY = os.path.join(ROOT, "cmoop_audio_processing_torch", "examples",
+                      "artifacts", "search_parity", "seed_7.json")
+
+
+def phase_oracle(name: str, smi: str) -> None:
+    """``run_all8 --table-eval`` at seed 7, pop 10, 8 generations on the
+    card: every fitness read from the JAX package's exhaustive tables, the
+    GP fits on the card. The run record must hold all 11 searches, each
+    naming the card; every front row must be a row of its template's table
+    in ``Size_MB``: a row whose accuracy or FPR differs from it is a
+    surrogate-predicted survivor (SA family only, counted), and a 2-stage
+    SA front may also carry its PSI seed's rows, which hold the stage-1
+    (template A) table's fitness untrained, as the reference carries them.
+    Each method's GD and IGD against the truth are printed beside the
+    committed CPU values of the same seed."""
+    from cmoop_audio_processing_torch.core.config import get_preset
+    from cmoop_audio_processing_torch.examples import run_all8 as ra
+    from cmoop_audio_processing_torch.examples import run_exhaustive as rx
+
+    t_phase = time.perf_counter()
+    out = os.path.join(WORK, "oracle")
+    shutil.rmtree(out, ignore_errors=True)
+    rc = ra.main(["--table-eval", "--device", "cuda", "--seed", "7",
+                  "--pop", "10", "--gen", "8", "--out", out])
+    if rc not in (0, 1):
+        raise AssertionError(f"[oracle] run_all8 exited {rc}")
+    secs = time.perf_counter() - t_phase
+    with open(os.path.join(out, ra.RUN_RECORD)) as f:
+        entries = json.load(f)["searches"]
+    presets = ra.STAGE1 + [p for _, p, _ in ra.METHODS]
+    if [e["preset"] for e in entries] != presets:
+        raise AssertionError(f"[oracle] run record holds "
+                             f"{[e['preset'] for e in entries]}")
+    off = [e["preset"] for e in entries
+           if (e["card"], e["nvidia_smi"]) != (name, smi)]
+    if off:
+        raise AssertionError(f"[oracle] entries not naming {smi!r}: {off}")
+    truths = {t: rx.read_table(os.path.join(
+        ROOT, "examples", "exhaustive", f"exhaustive_{t}_288.csv"))
+        for t in ("B", "A")}
+    tables = {t: {rx.genome_key_of_row(r): r for r in rows}
+              for t, rows in truths.items()}
+
+    def fits(r):
+        return r["Accuracy"], r["Size_MB"], r["FPR"]
+
+    sa_family = [p for _, p, _ in ra.METHODS[:6]]
+    two_stage = [p for _, p, seeded in ra.METHODS[:6] if seeded]
+    counts = {}
+    for p in presets:
+        cfg = get_preset(p)
+        path = ra.front_path(cfg, out)
+        rows = rx.read_table(path) if os.path.getsize(path) else []
+        predicted = seeded = 0
+        for r in rows:
+            key = rx.genome_key_of_row(r)
+            want = tables[cfg.train.template][key]
+            if fits(r) == fits(want):
+                continue
+            if r["Size_MB"] == want["Size_MB"] and p in sa_family:
+                predicted += 1
+            elif p in two_stage and fits(r) == fits(tables["A"][key]):
+                seeded += 1
+            else:
+                raise AssertionError(f"[oracle] {p}: front row {r} is not "
+                                     f"its template's table row {want}")
+        counts[p] = (len(rows), predicted, seeded)
+    with open(PARITY) as f:
+        cpu = json.load(f)["port_cpu"]["truth"]
+    with tempfile.TemporaryDirectory() as fronts:
+        ra.export(out, fronts)
+        truth = rx.report_on(truths, fronts, None, None)["methods"]
+    for m, p, _ in ra.METHODS:
+        rows, predicted, seeded = counts[p]
+        got, want = truth.get(m, {}), cpu.get(m, {})
+        log(f"[oracle] {m}: {rows} front rows ({predicted} predicted, "
+            f"{seeded} PSI seed); GD {got.get('gd_vs_truth')} IGD "
+            f"{got.get('igd_vs_truth')} (CPU, seed 7: "
+            f"{want.get('gd_vs_truth')} / {want.get('igd_vs_truth')})")
+    gp = sum(e["gp_refit_s"] or 0.0 for e in entries)
+    total = time.perf_counter() - t_phase
+    log(f"[oracle] seed 7, pop 10, 8 generations on the tables: 11 searches "
+        f"in {secs:.2f} s, verdict rc {rc}, "
+        f"{sum(e['gp_refits'] for e in entries)} GP refits in {gp:.2f} s; "
+        f"phase {total:.2f} s; card: {smi}"
+        + ("" if total <= ORACLE_BUDGET_S else
+           f"; OVER the {ORACLE_BUDGET_S}-s budget"))
+
+
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
     the FFT route. ``launches`` keeps the first path's count,
@@ -1776,6 +1882,7 @@ def main(argv=None) -> int:
     phase_split("cuda", data_dir, bird_dir, smi)
     phase_exhaustive(smi)
     phase_all8(name, smi)
+    phase_oracle(name, smi)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -13,7 +13,7 @@ semantics) over the 8 fronts.
         [--out /tmp/all8] [--pop 10] [--gen 8] [--epochs 30] [--seed 7]
         [--fake-eval] [--device cuda|cpu] [--plots DIR]
         [--compaction-chunk N] [--resume] [--export DIR]
-        [--compare-to DIR]
+        [--compare-to DIR] [--table-eval [DIR]]
 
 Produces <out>/compare_report_all8.json and exits 0 when the paper's
 ordering (every 2-stage variant >= plain SA-NSGA-II on HV and <= on IGD)
@@ -68,7 +68,13 @@ Beyond the JAX script's options:
   report, the caches and the run record into DIR;
 * ``--compare-to DIR`` trains nothing: it holds ``--out``'s artifacts
   against the JAX package's replica reports in DIR and both packages'
-  exhaustive truths, and writes ``<out>/meta.json`` (``compare_to_jax``).
+  exhaustive truths, and writes ``<out>/meta.json`` (``compare_to_jax``);
+* ``--table-eval [DIR]`` (DIR default examples/exhaustive) trains nothing
+  either: every search reads its fitnesses from the sweep table of its
+  template in DIR (``run_exhaustive.TableEvaluator``: A for stage 1 and
+  MOBO, B for the SA family), so the searches, their GP fits on
+  ``--device`` included, are the only thing that differs between two
+  runs. It excludes ``--fake-eval`` and writes no fitness cache.
 """
 
 from __future__ import annotations
@@ -90,7 +96,7 @@ from ..cli import psi_merge
 from ..cli.main import make_evaluator, run
 from ..core.config import Constraints, DataConfig, get_preset
 from .run_exhaustive import ALL8 as JAX_ALL8
-from .run_exhaustive import REPO, device_record
+from .run_exhaustive import REPO, TableEvaluator, device_record
 
 JAX_TRUTH = os.path.join(REPO, "examples", "exhaustive")
 PORT_TRUTH = os.path.join(REPO, "cmoop_audio_processing_torch", "examples",
@@ -100,7 +106,7 @@ STAGE1 = ["acc_size_nsga_1", "acc_fpr_nsga_1", "size_fpr_nsga_1"]
 RUN_RECORD = "all8_run.json"
 # the settings a resume must share with the run record it continues
 RESUME_KEYS = ("pop", "gen", "epochs", "seed", "fake_eval", "device",
-               "compaction_chunk")
+               "compaction_chunk", "table_eval")
 # the search stages whose seconds are GP (re)fits (progress.jsonl)
 GP_STAGES = ("surrogate_init", "surrogate_update", "gp_fit")
 
@@ -174,8 +180,9 @@ def cache_path(cfg, args) -> Optional[str]:
     a fingerprint-mismatch crash; the dataset hash — the one field not
     in the tag — is shared by construction (one dataset per replica).
     The launch plan is not in the tag either: every search of a replica
-    runs under one plan, and the cache's own fingerprint refuses another."""
-    if args.fake_eval:
+    runs under one plan, and the cache's own fingerprint refuses another.
+    None under ``--table-eval`` too: a table needs no cache."""
+    if args.fake_eval or getattr(args, "table_eval", None):
         return None
     fp = {
         f: getattr(cfg.train, f)
@@ -197,12 +204,14 @@ def front_path(cfg, out: str) -> str:
 
 
 def search_record(method: str, cfg, evaluator, wall: float,
-                  stages: List[Dict], cache: Optional[str]) -> Dict:
+                  stages: List[Dict], cache: Optional[str],
+                  device=None) -> Dict:
     """One search's entry in the run record: its wall seconds, the
     trainings it ran and the cache hits it replayed, its launches (one-lane
     ones apart) and their lanes, the mean epochs its trainings ran, the
     seconds of its GP fits (``stages``: its progress.jsonl's stage events),
-    the launch plan, and on CUDA the card and its power limit."""
+    the launch plan, and on CUDA the card and its power limit: the
+    evaluator's device, else ``device`` (where the GP fits ran)."""
     timings = evaluator.timings
     chunks = [c for t in timings for c in t.get("chunks", [])]
     ran = list(getattr(evaluator, "_epoch_history", {}).values())
@@ -233,7 +242,7 @@ def search_record(method: str, cfg, evaluator, wall: float,
             "compute_dtype": str(train.compute_dtype),
         },
         "fitness_cache": os.path.basename(cache) if cache else None,
-        **device_record(getattr(evaluator, "device", None)),
+        **device_record(getattr(evaluator, "device", None) or device),
     }
     return rec
 
@@ -254,19 +263,29 @@ def run_one(cfg, args, method: Optional[str] = None):
     cache = cache_path(cfg, args)
     progress = os.path.join(args.out, cfg.name, "progress.jsonl")
     offset = os.path.getsize(progress) if os.path.exists(progress) else 0
-    evaluator = make_evaluator(cfg, args.fake_eval, args.device,
-                               fitness_cache_path=cache)
+    if args.table_eval:
+        evaluator = TableEvaluator(args.table_eval, cfg.train.template,
+                                   cfg.train.num_classes)
+    else:
+        evaluator = make_evaluator(cfg, args.fake_eval, args.device,
+                                   fitness_cache_path=cache)
     pareto, _ = run(cfg, evaluator, device=args.device)
     wall = time.perf_counter() - t0
     print(f"[all8] {cfg.name}: {len(pareto)} front rows, {wall:.1f}s",
           file=sys.stderr)
     return front_path(cfg, args.out), search_record(
         method or cfg.name, cfg, evaluator, wall,
-        _read_stages(progress, offset), cache)
+        _read_stages(progress, offset), cache, args.device)
 
 
 def _settings(args) -> Dict:
-    return {k: getattr(args, k) for k in RESUME_KEYS}
+    """The run's RESUME_KEYS; a ``--table-eval`` directory relative to the
+    repo, so that a record does not depend on where the checkout lies."""
+    settings = {k: getattr(args, k) for k in RESUME_KEYS}
+    if settings["table_eval"]:
+        settings["table_eval"] = os.path.relpath(
+            os.path.abspath(settings["table_eval"]), REPO)
+    return settings
 
 
 def load_record(args) -> Dict:
@@ -449,6 +468,17 @@ def _read_cache(path: str):
     return header, recs
 
 
+def truth_table(truth_dir: str, template: str, seed=None) -> str:
+    """A truth directory's table of ``template`` at the eval seed ``seed``:
+    ``exhaustive_<T>_288_seed<s>.csv`` where the directory holds one (the
+    port's other seeds in exhaustive_h100/), else its main table."""
+    at_seed = os.path.join(truth_dir, f"exhaustive_{template}_288_seed{seed}"
+                                      ".csv")
+    if seed is not None and os.path.exists(at_seed):
+        return at_seed
+    return os.path.join(truth_dir, f"exhaustive_{template}_288.csv")
+
+
 def hold_caches_against_truth(out: str, truth_dir: str, settings: Dict
                               ) -> Dict:
     """(d) the replica's fitnesses against the exhaustive tables of the same
@@ -485,7 +515,7 @@ def hold_caches_against_truth(out: str, truth_dir: str, settings: Dict
     for t in ("B", "A"):
         if t not in read:
             continue
-        table = text_table(os.path.join(truth_dir, f"exhaustive_{t}_288.csv"))
+        table = text_table(truth_table(truth_dir, t, settings["seed"]))
         recs = [r for r in read[t][1] if r["seed"] == settings["seed"]]
         rows = [(r, table[genome_key_of_row(dict(zip(GENE_ORDER, r["g"])))])
                 for r in recs]
@@ -517,7 +547,8 @@ def compare_to_jax(out: str, jax_dir: str, truth_dir: str = PORT_TRUTH,
 
     (a) and (b): ``hold_against_replicas`` against the reports
     compare_report_all8*.json in ``jax_dir``; (c) the fronts scored against
-    the port's exhaustive truth in ``truth_dir`` by
+    the port's exhaustive truth in ``truth_dir`` (its tables at the
+    replica's seed where it holds them, ``truth_table``) by
     ``run_exhaustive.report_on``, beside the JAX package's fronts in
     ``jax_all8_dir`` scored against its truth in ``jax_truth_dir``, each
     with whether 2_stage_MOBO's GD and IGD stay below MOBO's; (d)
@@ -536,15 +567,15 @@ def compare_to_jax(out: str, jax_dir: str, truth_dir: str = PORT_TRUTH,
         _read_json(os.path.join(out, "compare_report_all8.json")),
         jax_reports))
 
-    def scored(truth, fronts):
-        rep = report_on({t: read_table(os.path.join(
-            truth, f"exhaustive_{t}_288.csv")) for t in ("B", "A")},
-            fronts, settings.get("epochs"), settings.get("seed"))
+    def scored(truth, fronts, seed=None):
+        rep = report_on({t: read_table(truth_table(truth, t, seed))
+                         for t in ("B", "A")},
+                        fronts, settings.get("epochs"), settings.get("seed"))
         holds = (_mobo_ordering_holds(rep)
                  if {"MOBO", "2_stage_MOBO"} <= set(rep["methods"]) else None)
         return {"report": rep, "mobo_ordering_holds": holds}
 
-    meta["truth"] = {"card": scored(truth_dir, out),
+    meta["truth"] = {"card": scored(truth_dir, out, settings.get("seed")),
                      "jax": scored(jax_truth_dir, jax_all8_dir),
                      "dirs": {k: os.path.relpath(d, REPO) for k, d in (
                          ("card_truth", truth_dir), ("jax_truth",
@@ -629,7 +660,13 @@ def main(argv=None) -> int:
                    help="compare only: hold --out's artifacts against the "
                         "JAX replica reports compare_report_all8*.json in "
                         "DIR and write --out/meta.json (no training)")
+    p.add_argument("--table-eval", metavar="DIR", nargs="?", const=JAX_TRUTH,
+                   help="read every fitness from DIR's exhaustive_<T>_288"
+                        ".csv of the search's template instead of training "
+                        "(default DIR: examples/exhaustive)")
     args = p.parse_args(argv)
+    if args.table_eval and args.fake_eval:
+        p.error("--table-eval excludes --fake-eval")
     if args.export:
         copied = export(args.out, args.export)
         print(f"[all8] {len(copied)} files -> {args.export}", file=sys.stderr)

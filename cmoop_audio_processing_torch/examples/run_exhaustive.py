@@ -176,6 +176,40 @@ def genome_key_of_row(row) -> tuple:
     )
 
 
+class TableEvaluator:
+    """A fitness oracle read from a sweep table: ``evaluate`` returns each
+    genome's (Accuracy, Size_MB, FPR) from ``<truth_dir>/exhaustive_
+    <template>_288.csv``, whatever the seed (the table holds one eval seed,
+    and the all-8 harness fixes its eval seed anyway). Nothing is trained,
+    so a search on it differs from another only in its search layer.
+
+    It carries what the searches and ``run_all8.search_record`` read:
+    ``num_classes``, ``template``, ``total_true_evals``, ``timings`` (one
+    entry a call, without launches or seconds, so a record claims no rate)
+    and ``device`` None."""
+
+    def __init__(self, truth_dir: str, template: str, num_classes: int = 10):
+        self.template = template
+        self.num_classes = num_classes
+        self.device = None
+        self.total_true_evals = 0
+        self.timings: List[Dict] = []
+        path = os.path.join(truth_dir, f"exhaustive_{template}_288.csv")
+        self._fitness = {
+            genome_key_of_row(r): (r["Accuracy"], r["Size_MB"], r["FPR"])
+            for r in read_table(path)}
+
+    def evaluate(self, genomes, seed: int = 0):
+        keys = [genome_key_of_row(g) for g in genomes]
+        for k, g in zip(keys, genomes):
+            if k not in self._fitness:
+                raise KeyError(f"genome {dict(g)} is not in the template-"
+                               f"{self.template} table")
+        self.total_true_evals += len(keys)
+        self.timings.append({"n_genomes": len(keys), "cache_hits": 0})
+        return [self._fitness[k] for k in keys]
+
+
 def run_record(template: str, ev, seconds: float, args) -> Dict:
     """What a trained sweep measured: its launches, stop epochs and rate,
     beside the device it ran on."""

@@ -340,3 +340,36 @@ def test_compare_cli_on_the_card_fronts_equals_jax(tmp_path, capsys):
     assert outs["torch"] == outs["jax"]
     assert (tmp_path / "torch" / "r.json").read_bytes() == \
         (tmp_path / "jax" / "r.json").read_bytes()
+
+
+CARD11 = os.path.join(ARTIFACTS, "all8_h100_seed11")
+
+
+def test_committed_seed11_replica_meta_recomputes():
+    """all8_h100_seed11/meta.json is what ``compare_to_jax`` computes from
+    the committed files; its fronts and fitness caches are held against the
+    port's truth tables at seed 11 (exhaustive_<T>_288_seed11.csv)."""
+    got = t_all8.compare_to_jax(CARD11, EXAMPLES)
+    _assert_close(got, _read(os.path.join(CARD11, "meta.json")))
+    assert got["settings"] == {"pop": 10, "gen": 8, "epochs": 30, "seed": 11,
+                               "fake_eval": False, "device": "cuda",
+                               "compaction_chunk": 0, "table_eval": None}
+    for t in ("B", "A"):
+        assert t_all8.truth_table(TRUTH, t, 11).endswith(
+            f"exhaustive_{t}_288_seed11.csv")
+        assert t_all8.truth_table(TRUTH, t, 7).endswith(
+            f"exhaustive_{t}_288.csv")
+    fit = got["fitness_vs_exhaustive"]
+    assert fit["dataset_fingerprint"]["equal"]
+    for t in ("B", "A"):
+        assert fit[t]["size_equal"] == fit[t]["genomes"] > 0, t
+
+
+def test_committed_seed11_replica_record_names_the_card():
+    record = _read(os.path.join(CARD11, t_all8.RUN_RECORD))
+    assert [e["preset"] for e in record["searches"]] == PRESETS
+    for e in record["searches"]:
+        assert e["card"] == "NVIDIA H100 80GB HBM3", e["preset"]
+        assert e["nvidia_smi"].startswith("NVIDIA H100 80GB HBM3, ")
+        assert e["plan"]["compaction_chunk"] == 0
+        assert os.path.exists(os.path.join(CARD11, f"front_{e['preset']}.csv"))

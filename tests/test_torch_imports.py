@@ -248,7 +248,7 @@ def test_validation_scripts_run_with_pandas_sklearn_h5py_and_jax_blocked(
 
         sys.meta_path.insert(0, Block())
         for m in ("run_exhaustive", "run_all8", "make_kws_corpus",
-                  "make_birdclef_corpus"):
+                  "make_birdclef_corpus", "packing_ab"):
             importlib.import_module("cmoop_audio_processing_torch.examples." + m)
         from cmoop_audio_processing_torch.cli import psi_merge
         from cmoop_audio_processing_torch.examples import run_exhaustive
@@ -318,3 +318,40 @@ def test_all8_resume_export_and_comparison_run_with_jax_blocked(tmp_path):
             f"front_{p}.csv" for p in ("acc_size_nsga_1", "mobo_penalty",
                                        "psi_mobo_2", "sa_nsga_penalty")]:
         assert (tmp_path / "art" / name).exists(), name
+
+
+def test_all8_on_the_tables_runs_with_jax_blocked(tmp_path):
+    """``run_all8 --table-eval`` (every fitness read from the JAX package's
+    committed exhaustive tables, the GP fits on the CPU) runs all 11
+    searches with the optional packages and JAX unimportable, and records
+    its table directory and no fitness cache."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        BLOCKED = {sorted(LAZY_ONLY | FORBIDDEN)!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{{name}} is blocked")
+
+        sys.meta_path.insert(0, Block())
+        from cmoop_audio_processing_torch.examples import run_all8
+
+        rc = run_all8.main(["--table-eval", "--pop", "4", "--gen", "1",
+                            "--seed", "11", "--device", "cpu", "--out", "run"])
+        assert rc in (0, 1), rc
+        with open(os.path.join("run", run_all8.RUN_RECORD)) as f:
+            record = json.load(f)
+        assert record["settings"]["table_eval"] == "examples/exhaustive"
+        assert len(record["searches"]) == 11
+        assert not [e for e in record["searches"] if e["fitness_cache"]]
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    assert (tmp_path / "run" / "compare_report_all8.json").exists()
