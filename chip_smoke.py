@@ -23,18 +23,19 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. build   — compile every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
              per kernel, and the native HV core (native/hv.cpp, g++), all
-             started together; ptxas's registers and spills for each
-             kernel function;
+             started together; ptxas's registers, stack and spills for each
+             kernel function, none spilled on the FFT route;
 2. kernels — each kernel against its plain PyTorch version on the card, at
              its path's shapes (atol 3e-2, rtol 1e-3, the JAX package's
              Pallas-vs-XLA tolerance), with kernel, plain and bound times:
              mfcc_fused at 4096 1-s clips, hop 360, 40 mels, 13 MFCC;
              log_mel_fused at 512 5-s clips, hop 160, 40 mels, in dB with
-             top_db 80 and in natural-log mode. n_fft 512 takes the FFT
-             route; each kernel's dense route is checked and timed at the
-             same shapes with n_fft 400. Beside them, the time of a cuFFT
-             chain the port never calls (torch.stft -> |.|^2 -> mel -> log
-             (-> DCT)), as a yardstick;
+             top_db 80 (and in natural-log mode at n_fft 512). Three
+             routes each: n_fft 512 (the FFT route's radix-2 plan, the
+             presets' size), 400 (its mixed-radix plan) and 401 (the dense
+             route), each with its own bound. Beside them, the time of a
+             cuFFT chain the port never calls (torch.stft -> |.|^2 -> mel
+             -> log (-> DCT)), as a yardstick;
 3. extract — ~2000 class-dependent synthetic 1-s wavs through
              ``extract_features(kind="mfcc")`` into a stratified 70/15/15
              npy split;
@@ -92,7 +93,7 @@ Phases (any failure exits non-zero; nothing is caught):
              step's logits, BN state and gradients and a validation pass's
              metrics must be bit for bit;
 13. mesh   — the device mesh in a world of one process, on phase 3's split
-             at full width, 3 epochs: ``--mesh 1`` through the CLI against
+             at full width, 2 epochs: ``--mesh 1`` through the CLI against
              the same run without a mesh, one-shot, bit for bit; the
              planner's genomes on a (4, 1) mesh over ``[cuda:0] * 4`` in
              bf16 bit for bit against the no-mesh run whose launches hold
@@ -187,7 +188,8 @@ MOBO_ITERS = 4  # acquisitions after the preset's 15 initial genomes
 MOBO_EPOCHS = 3
 TOL = dict(atol=3e-2, rtol=1e-3)  # the JAX package's Pallas-vs-XLA tolerance
 KERNELS = ("mfcc_fused", "log_mel_fused")
-DENSE_N_FFT = 400  # not a power of two: the kernels' dense route
+FFT_MIXED_N_FFT = 400  # N = 200 = 25 x 8: the FFT route's mixed-radix plan
+DENSE_N_FFT = 401  # odd: the kernels' dense route
 # (name, bytes/s, f32 FLOP/s outside the tensor cores): published dense peaks
 PEAKS = {
     "H100 PCIe": (2.0e12, 51e12),
@@ -255,38 +257,11 @@ def synth_kws(rng, n: int):
     return wavs, labels.astype(np.int32)
 
 
-def kernel_function(mangled: str) -> str:
-    """'name<arg>' of a mangled kernel function: the <length><name> part
-    that names a *_kernel, and its integer template argument, if any."""
-    for i in range(len(mangled)):
-        m = re.match(r"(\d+)(\w+?_kernel)(IL[a-z](\d+)E)?", mangled[i:])
-        if m and int(m.group(1)) == len(m.group(2)):
-            return f"{m.group(2)}<{m.group(4)}>" if m.group(4) else m.group(2)
-    return mangled
-
-
-def ptxas_summary(report: str):
-    """(kernel function, registers, spill store bytes, spill load bytes) for
-    each entry function in an ``nvcc -Xptxas -v`` report."""
-    rows, name, spills = [], None, (0, 0)
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = kernel_function(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            spills = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            rows.append((name, int(m.group(1)), *spills))
-            name, spills = None, (0, 0)
-    return rows
-
-
 def phase_build() -> None:
     from cmoop_audio_processing_torch.frontend.cuda_kernels import (
         build_library,
         ptxas_report,
+        ptxas_summary,
     )
     from cmoop_audio_processing_torch.native import build as native
 
@@ -299,9 +274,12 @@ def phase_build() -> None:
     log(f"[build] native HV core -> {os.path.relpath(native.HV_LIB, ROOT)}")
     for name, report in zip(KERNELS, reports):
         log(f"[build] {name} -> {os.path.relpath(build_library(name), ROOT)}")
-        for fn, regs, st, ld in ptxas_summary(report):
-            log(f"[build]   ptxas {fn}: {regs} registers, spill stores {st} B, "
-                f"spill loads {ld} B")
+        for fn, regs, stack, st, ld in ptxas_summary(report):
+            log(f"[build]   ptxas {fn}: {regs} registers, stack {stack} B, "
+                f"spill stores {st} B, spill loads {ld} B")
+            # the FFT route's register plans must fit (mel_fft.cuh)
+            assert not re.search(r"_(fft|mixed)_kernel", fn) or st == ld == 0, (
+                fn, st, ld)
     log(f"[build] {len(KERNELS)} kernels and the HV core in {secs:.1f} s")
 
 
@@ -346,34 +324,38 @@ def frontend_work(cfg, batch: int, n_samples: int, n_out: int,
     return frames * per_frame, 4 * (batch * n_samples + frames * n_out)
 
 
-def kernel_record(name, source, replaces, max_err, ms, plain_ms, work,
-                  device_name, **extra) -> dict:
+def bound(work, device_name: str):
+    """(bound ms, "bytes" or "operations", the peaks' name): the larger of
+    the work's FLOPs over the card's f32 peak and its bytes over its memory
+    rate."""
     flops, nbytes = work
     peak_name, (bw, f32_peak) = card_peaks(device_name)
     t_ops, t_bytes = flops / f32_peak * 1e3, nbytes / bw * 1e3
-    rec = {
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            peak_name)
+
+
+def kernel_record(name, source, replaces, route: dict, **extra) -> dict:
+    """The contract's record of a kernel from its path's route (n_fft 512),
+    with ``extra`` (the other routes' records) beside it."""
+    return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": None,  # filled from its path's run
         "dft_route": None,  # likewise
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "max_abs_err": route["max_abs_err"],
+        "ms": route["ms"],
+        "plain_ms": route["plain_ms"],
+        "bound_ms": route["bound_ms"],
+        "bound_by": route["bound_by"],
         # no single PyTorch call computes DFT -> power -> mel -> log (->
         # DCT): torch.stft is an FFT and covers only the first stage
         "library_ms": None,
+        "fft_chain_ms": route["fft_chain_ms"],
         **extra,
     }
-    log(f"[kernels] {name}: max |err| {max_err:.3e}; kernel {ms:.4f} ms "
-        f"(FFT route), plain {plain_ms:.3f} ms, cuFFT chain "
-        f"{extra['fft_chain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
-        f"{rec['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
-        f"{peak_name} peaks)")
-    return rec
 
 
 def fft_chain(y, cfg, dct: bool):
@@ -417,7 +399,34 @@ def time_kernel(tag, fn, ref, y, cfg, shape, dct: bool):
             cuda_time_ms(lambda: fft_chain(y, cfg, dct), reps=20))
 
 
+def time_route(name, fn, ref, y, cfg, dct: bool, n_out: int,
+               epilogue_flops: int, device_name: str) -> dict:
+    """One route of a kernel at cfg.n_fft on y: its max |err| against the
+    plain version, kernel, plain and cuFFT-chain ms, and its bound from
+    ``frontend_work`` at that n_fft."""
+    from cmoop_audio_processing_torch.frontend import cuda_kernels as ck
+
+    batch, n_samples = y.shape
+    shape = (batch, cfg.n_frames(n_samples), n_out)
+    route = ck.dft_route(cfg.n_fft)
+    tag = f"{name} ({route} route, n_fft {cfg.n_fft})"
+    err, ms, plain_ms, chain_ms = time_kernel(tag, fn, ref, y, cfg, shape, dct)
+    work = frontend_work(cfg, batch, n_samples, n_out, epilogue_flops)
+    bound_ms, bound_by, peak_name = bound(work, device_name)
+    log(f"[kernels] {tag}: max |err| {err:.3e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, cuFFT chain {chain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({work[0] / 1e9:.3f} GFLOP, "
+        f"{work[1] / 1e6:.1f} MB; {peak_name} peaks)")
+    return {"n_fft": cfg.n_fft, "dft_route": route, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "fft_chain_ms": chain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_kernels(seed: int, device_name: str) -> dict:
+    """Each kernel on three routes at its path's shapes: n_fft 512 (the FFT
+    route's radix-2 plan, the presets' size and the contract's record),
+    FFT_MIXED_N_FFT (the mixed-radix plan) and DENSE_N_FFT (the dense
+    route)."""
     import dataclasses
 
     import numpy as np
@@ -428,66 +437,47 @@ def phase_kernels(seed: int, device_name: str) -> dict:
 
     rng = np.random.default_rng(seed)
     records = {}
+    sizes = {"fft": 512, "mixed": FFT_MIXED_N_FFT, "dense": DENSE_N_FFT}
+    assert [ck.dft_route(n) for n in sizes.values()] == ["fft", "fft", "dense"]
+    p, _ = ck.fft_plan(FFT_MIXED_N_FFT)
+    assert p & (p - 1), f"n_fft {FFT_MIXED_N_FFT} takes the radix-2 plan"
+
+    def routes(name, fn, ref, y, cfg, dct, n_out, epilogue_flops):
+        return {k: time_route(name, fn, ref, y,
+                              dataclasses.replace(cfg, n_fft=n), dct, n_out,
+                              epilogue_flops, device_name)
+                for k, n in sizes.items()}
 
     cfg = FrontendConfig(hop_length=KWS_HOP, n_mels=40, n_mfcc=13)
-    dense = dataclasses.replace(cfg, n_fft=DENSE_N_FFT)
     y = torch.as_tensor(synth_clips(rng, 4096, KWS_N_SAMPLES), device="cuda")
-    assert ck.dft_route(cfg.n_fft) == "fft" and ck.dft_route(dense.n_fft) == "dense"
-    err, ms, plain_ms, chain_ms = time_kernel(
-        "mfcc_fused", ck.mfcc_fused, ck.mfcc_fused_reference, y, cfg,
-        (4096, cfg.n_frames(KWS_N_SAMPLES), 13), dct=True)
-    d_err, d_ms, d_plain, _ = time_kernel(
-        "mfcc_fused (dense route)", ck.mfcc_fused, ck.mfcc_fused_reference, y,
-        dense, (4096, dense.n_frames(KWS_N_SAMPLES), 13), dct=True)
-    log(f"[kernels] mfcc_fused dense route at n_fft {DENSE_N_FFT}: max |err| "
-        f"{d_err:.3e}; kernel {d_ms:.3f} ms, plain {d_plain:.3f} ms")
+    # the DCT-II: n_mels x n_mfcc multiply-adds
+    rec = routes("mfcc_fused", ck.mfcc_fused, ck.mfcc_fused_reference, y, cfg,
+                 True, cfg.n_mfcc, 2 * cfg.n_mels * cfg.n_mfcc)
     records["mfcc_fused"] = kernel_record(
         "mfcc_fused", "cmoop_audio_processing_torch/csrc/mfcc_fused.cu",
-        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:160", err, ms,
-        plain_ms,
-        # the DCT-II: n_mels x n_mfcc multiply-adds
-        frontend_work(cfg, 4096, KWS_N_SAMPLES, cfg.n_mfcc,
-                      2 * cfg.n_mels * cfg.n_mfcc),
-        device_name, fft_chain_ms=chain_ms,
-        dense_route={"n_fft": DENSE_N_FFT, "max_abs_err": d_err, "ms": d_ms,
-                     "plain_ms": d_plain},
-    )
+        "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:160",
+        rec["fft"], mixed_route=rec["mixed"], dense_route=rec["dense"])
     del y
 
-    # the BirdCLEF shape: 512 5-s clips, 256,512 frames
+    # the BirdCLEF shape: 512 5-s clips, 256,512 frames, in the path's mode
+    # (dB, top_db 80; the top_db step, a max, a subtract and a clamp per
+    # output, included) and in natural-log mode at 512
     y = torch.as_tensor(synth_clips(rng, BIRD_CHECK_CLIPS, BIRD_N_SAMPLES),
                         device="cuda")
     db = FrontendConfig(log="db", top_db=80.0)
-    natural = FrontendConfig(log="natural")
-    dense = dataclasses.replace(db, n_fft=DENSE_N_FFT)
-    shape = (BIRD_CHECK_CLIPS, db.n_frames(BIRD_N_SAMPLES), 40)
-    err, ms, plain_ms, chain_ms = time_kernel(
-        "log_mel_fused (db)", ck.log_mel_fused, ck.log_mel_fused_reference, y,
-        db, shape, dct=False)
-    n_err, n_ms, _, _ = time_kernel(
-        "log_mel_fused (natural)", ck.log_mel_fused,
-        ck.log_mel_fused_reference, y, natural, shape, dct=False)
-    d_err, d_ms, d_plain, _ = time_kernel(
-        "log_mel_fused (dense route)", ck.log_mel_fused,
-        ck.log_mel_fused_reference, y, dense,
-        (BIRD_CHECK_CLIPS, dense.n_frames(BIRD_N_SAMPLES), 40), dct=False)
-    log(f"[kernels] log_mel_fused max |err|: db+top_db {err:.3e}, natural "
-        f"{n_err:.3e} ({n_ms:.4f} ms); dense route at n_fft {DENSE_N_FFT} "
-        f"{d_err:.3e}, kernel {d_ms:.3f} ms, plain {d_plain:.3f} ms")
+    rec = routes("log_mel_fused", ck.log_mel_fused, ck.log_mel_fused_reference,
+                 y, db, False, db.n_mels, 3 * db.n_mels)
+    natural = time_route("log_mel_fused (natural)", ck.log_mel_fused,
+                         ck.log_mel_fused_reference, y,
+                         FrontendConfig(log="natural"), False, db.n_mels, 0,
+                         device_name)
     records["log_mel_fused"] = kernel_record(
         "log_mel_fused", "cmoop_audio_processing_torch/csrc/log_mel_fused.cu",
         "cmoop_audio_processing_tpu/frontend/pallas_kernels.py:122",
-        max(err, n_err),
-        # the path's mode (dB, top_db 80), the top_db step included
-        ms, plain_ms,
-        # top_db: a max, a subtract and a clamp per output
-        frontend_work(db, BIRD_CHECK_CLIPS, BIRD_N_SAMPLES, db.n_mels,
-                      3 * db.n_mels),
-        device_name, fft_chain_ms=chain_ms,
-        natural_ms=n_ms,
-        dense_route={"n_fft": DENSE_N_FFT, "max_abs_err": d_err, "ms": d_ms,
-                     "plain_ms": d_plain},
-    )
+        dict(rec["fft"], max_abs_err=max(rec["fft"]["max_abs_err"],
+                                         natural["max_abs_err"])),
+        natural_ms=natural["ms"], mixed_route=rec["mixed"],
+        dense_route=rec["dense"])
     return records
 
 
@@ -1196,7 +1186,7 @@ def planner_rates(device: str, kws_ev, kws_secs: float, bird_dir: str) -> None:
             f"of {len(bird['y_train'])} rows)")
 
 
-MESH_EPOCHS = 3
+MESH_EPOCHS = 2  # every check of the phase is bit for bit at any depth
 MESH_LANES_BOUND = 2  # at most 2 genomes differ (the compaction bound)
 
 
@@ -1219,7 +1209,7 @@ def _fit_diff(fits, ref, ep, ep_ref, n_val: int):
 
 def phase_mesh(device: str, data_dir: str, smi: str) -> None:
     """The device mesh (parallel/mesh.py) on the one card, in a world of
-    one process, on the KWS split at full width, 3 epochs:
+    one process, on the KWS split at full width, 2 epochs:
 
     (a) ``--mesh 1`` through the CLI (nsga_penalty, pop 4, one generation,
         bf16) against the same run without a mesh with

@@ -7,9 +7,12 @@
 // the n_mels real columns are written. The log is either natural,
 // ln(mel + 1e-6), or raw dB, 10*log10(max(mel, 1e-10)).
 //
-// * FFT route (n_fft a power of two, 64..2048): log_mel_fft_kernel, on
-//   mel_fft.cuh's stages (span load, one warp per frame for the packed real
-//   FFT, one lane per frame for the sparse mel product and the log), the
+// * FFT route (the n_fft of mel_fft::with_plan: the powers of two from 64
+//   to 2048 and the even sizes whose half is 2^a 3^b 5^c, up to 32 points a
+//   lane): log_mel_fft_kernel<P> (radix 2) or log_mel_mixed_kernel<P>, on
+//   mel_fft.cuh's stages (span load, a
+//   warp or a lane group per frame for the packed real FFT, one lane per
+//   frame for the sparse mel product and the log), the
 //   block's rows written coalesced. A block handles frames of one clip, so
 //   it also records the clip's dB maximum with an order-free atomic max on
 //   the float's ordered-int encoding (exact, so deterministic); the
@@ -68,23 +71,22 @@ __device__ __forceinline__ float unordered(int i) {
 
 // mode: 0 = natural log, 1 = raw dB, 2 = dB and the clip maximum into
 // clip_max[clip] (ordered-int encoding)
-template <int LOG2P>
-__global__ void __launch_bounds__(mel_fft::THREADS)
-log_mel_fft_kernel(const float* __restrict__ y, const float* __restrict__ tables,
-                   const int* __restrict__ csr, const float* __restrict__ mel_w,
-                   float* __restrict__ out, int* __restrict__ clip_max,
-                   int n_samples, int n_frames, int hop, int pad,
-                   int frames_per_block, int blocks_per_clip, int n_mels,
-                   int nnz, int mode) {
-  constexpr int n_fft = 64 << LOG2P;
+template <int P>
+__device__ __forceinline__ void log_mel_fft(
+    const float* __restrict__ y, const float* __restrict__ tables,
+    const int* __restrict__ csr, const float* __restrict__ mel_w,
+    float* __restrict__ out, int* __restrict__ clip_max, int n_samples,
+    int n_frames, int hop, int pad, int frames_per_block, int blocks_per_clip,
+    int n_mels, int nnz, int mode, int n_fft) {
+  n_fft = mel_fft::plan_n_fft<P>(n_fft);
   extern __shared__ __align__(16) float smem[];
   const int clip = blockIdx.x / blocks_per_clip;
   const int t0 = (blockIdx.x % blocks_per_clip) * frames_per_block;
   const int rb = min(frames_per_block, n_frames - t0);
   const int span_len = (rb - 1) * hop + n_fft;
   const mel_fft::Layout lay(n_fft, n_mels, nnz, 0, rb, span_len);
-  mel_fft::mel_rows<LOG2P>(
-      smem, lay, tables, csr, mel_w, n_mels, nnz, nullptr, 0,
+  mel_fft::mel_rows<P>(
+      smem, lay, n_fft, tables, csr, mel_w, n_mels, nnz, nullptr, 0,
       y + (long long)clip * n_samples, n_samples, (long long)t0 * hop - pad,
       span_len, hop, rb, [mode](float mel) {
         return mode == 0 ? logf(mel + 1e-6f) : to_db(mel);
@@ -112,6 +114,26 @@ log_mel_fft_kernel(const float* __restrict__ y, const float* __restrict__ tables
   }
 }
 
+#define LOG_MEL_FFT_PARAMS                                                   \
+  const float *__restrict__ y, const float *__restrict__ tables,             \
+      const int *__restrict__ csr, const float *__restrict__ mel_w,          \
+      float *__restrict__ out, int *__restrict__ clip_max, int n_samples,    \
+      int n_frames, int hop, int pad, int frames_per_block,                  \
+      int blocks_per_clip, int n_mels, int nnz, int mode, int n_fft
+#define LOG_MEL_FFT_ARGS                                                \
+  y, tables, csr, mel_w, out, clip_max, n_samples, n_frames, hop, pad,  \
+      frames_per_block, blocks_per_clip, n_mels, nnz, mode, n_fft
+
+// the radix-2 plan (P a power of two); the mixed plan, compiled for
+// mel_fft::min_blocks(P) blocks an SM
+template <int P>
+__global__ void __launch_bounds__(mel_fft::THREADS)
+log_mel_fft_kernel(LOG_MEL_FFT_PARAMS) { log_mel_fft<P>(LOG_MEL_FFT_ARGS); }
+
+template <int P>
+__global__ void __launch_bounds__(mel_fft::THREADS, mel_fft::min_blocks(P))
+log_mel_mixed_kernel(LOG_MEL_FFT_PARAMS) { log_mel_fft<P>(LOG_MEL_FFT_ARGS); }
+
 // out[i] = max(out[i] - clip max, floor_db), in place: the wrapper's
 // _top_db rule, bit for bit. per_clip = n_frames * n_mels.
 template <bool VEC4>
@@ -138,26 +160,28 @@ __global__ void top_db_kernel(float* __restrict__ out,
   }
 }
 
-template <int LOG2P>
+template <int P>
 cudaError_t launch_fft(const float* y, const float* tables, const int* csr,
                        const float* mel_w, float* out, int* clip_max,
                        int batch, int n_samples, int n_frames, int hop, int pad,
-                       int n_mels, int nnz, int mode, cudaStream_t stream) {
-  constexpr int n_fft = 64 << LOG2P;
+                       int n_mels, int nnz, int mode, int n_fft,
+                       cudaStream_t stream) {
   int frames, blocks;
   mel_fft::block_geometry(n_frames, n_fft, hop, n_mels, nnz, 0, &frames,
                           &blocks);
   const mel_fft::Layout lay(n_fft, n_mels, nnz, 0, frames,
                             (frames - 1) * hop + n_fft);
   const size_t smem = sizeof(float) * lay.total;
+  const auto kernel = [] {
+    if constexpr (mel_fft::pow2(P)) return log_mel_fft_kernel<P>;
+    else return log_mel_mixed_kernel<P>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
-      log_mel_fft_kernel<LOG2P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  log_mel_fft_kernel<LOG2P>
-      <<<(unsigned)blocks * batch, mel_fft::THREADS, smem, stream>>>(
+  kernel<<<(unsigned)blocks * batch, mel_fft::THREADS, smem, stream>>>(
           y, tables, csr, mel_w, out, clip_max, n_samples, n_frames, hop, pad,
-          frames, blocks, n_mels, nnz, mode);
+          frames, blocks, n_mels, nnz, mode, n_fft);
   return cudaGetLastError();
 }
 
@@ -195,8 +219,8 @@ int log_mel_fused_launch(const void* y, const void* w, const void* mel_w,
   return (int)cudaGetLastError();
 }
 
-// FFT route, n_fft a power of two from 64 to 2048. tables: window (n_fft)
-// | W_N^j (N = n_fft/2 complex) | W_n^k (k <= N/2, complex), float32;
+// FFT route, n_fft one of mel_fft::with_plan's. tables: the plan's table
+// (mel_fft::table_floats; frontend/cuda_kernels.py fft_tables), float32;
 // csr (4, n_mels) int32: each band's first bin, bin count and offset into
 // mel_w (nnz float32 weights), then the bands longest first; out (batch * n_frames, n_mels); clip_max
 // (batch) int32 scratch. mode: 0 = ln(mel + 1e-6), 1 = raw dB, 2 = dB and
@@ -215,11 +239,11 @@ int log_mel_fft_launch(const void* y, const void* tables, const void* csr,
     if (err != cudaSuccess) return (int)err;
   }
   const int pad = center ? n_fft / 2 : 0;
-  cudaError_t err = mel_fft::with_log2p(n_fft, [&](auto log2p) {
-    return launch_fft<decltype(log2p)::value>(
+  cudaError_t err = mel_fft::with_plan(n_fft, [&](auto p) {
+    return launch_fft<decltype(p)::value>(
         (const float*)y, (const float*)tables, (const int*)csr,
         (const float*)mel_w, (float*)out, (int*)clip_max, batch, n_samples,
-        n_frames, hop, pad, n_mels, nnz, mode, s);
+        n_frames, hop, pad, n_mels, nnz, mode, n_fft, s);
   });
   if (err != cudaSuccess || mode != 2) return (int)err;
   const long long per_clip = (long long)n_frames * n_mels;

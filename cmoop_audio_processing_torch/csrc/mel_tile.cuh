@@ -1,6 +1,8 @@
 // The dense route's stages, shared by the two fused frontend kernels
 // (mfcc_fused.cu, log_mel_fused.cu) for every n_fft that mel_fft.cuh's FFT
-// route does not take (not a power of two from 64 to 2048): one block's 64
+// route does not take (not in its with_plan list: odd, a prime factor
+// above 5, or more than 32 points a lane, such as 401, 402, 1200): one
+// block's 64
 // frames -> windowed real DFT -> power -> mel, accumulated in shared
 // memory. Each kernel adds its own epilogue (dB + DCT-II, or the log) on
 // the accumulator this leaves behind.

@@ -6,9 +6,12 @@
 // TPU's tiling: no 128-lane padding (only the n_mels real mel columns enter
 // the DCT, so no padded column can add a log10(amin) term).
 //
-// * FFT route (n_fft a power of two, 64..2048): mfcc_fft_kernel, on
-//   mel_fft.cuh's stages (span load, one warp per frame for the packed real
-//   FFT, one lane per frame for the sparse mel product and the dB), then
+// * FFT route (the n_fft of mel_fft::with_plan: the powers of two from 64
+//   to 2048 and the even sizes whose half is 2^a 3^b 5^c, up to 32 points a
+//   lane): mfcc_fft_kernel<P> (radix 2) or mfcc_mixed_kernel<P>, on
+//   mel_fft.cuh's stages (span load, a warp
+//   or a lane group per frame for the packed real FFT, one lane per frame
+//   for the sparse mel product and the dB), then
 //   the n_mels x n_mfcc DCT, one lane per frame against D^T in shared
 //   memory, and the block's n_mfcc-float rows written coalesced. Bound:
 //   device memory (mel_fft.cuh says what holds it back).
@@ -55,23 +58,23 @@ mfcc_fused_kernel(const float* __restrict__ y, const float* __restrict__ w,
   }
 }
 
-template <int LOG2P>
-__global__ void __launch_bounds__(mel_fft::THREADS)
-mfcc_fft_kernel(const float* __restrict__ y, const float* __restrict__ tables,
-                const int* __restrict__ csr, const float* __restrict__ mel_w,
-                const float* __restrict__ dct, float* __restrict__ out,
-                int n_samples, int n_frames, int hop, int pad,
-                int frames_per_block, int blocks_per_clip, int n_mels, int nnz,
-                int n_mfcc) {
-  constexpr int n_fft = 64 << LOG2P;
+// The FFT route's kernel body for P points a lane (mel_fft::with_plan).
+template <int P>
+__device__ __forceinline__ void mfcc_fft(
+    const float* __restrict__ y, const float* __restrict__ tables,
+    const int* __restrict__ csr, const float* __restrict__ mel_w,
+    const float* __restrict__ dct, float* __restrict__ out, int n_samples,
+    int n_frames, int hop, int pad, int frames_per_block, int blocks_per_clip,
+    int n_mels, int nnz, int n_mfcc, int n_fft) {
+  n_fft = mel_fft::plan_n_fft<P>(n_fft);
   extern __shared__ __align__(16) float smem[];
   const int clip = blockIdx.x / blocks_per_clip;
   const int t0 = (blockIdx.x % blocks_per_clip) * frames_per_block;
   const int rb = min(frames_per_block, n_frames - t0);
   const int span_len = (rb - 1) * hop + n_fft;
   const mel_fft::Layout lay(n_fft, n_mels, nnz, n_mfcc, rb, span_len);
-  mel_fft::mel_rows<LOG2P>(
-      smem, lay, tables, csr, mel_w, n_mels, nnz, dct, n_mels * n_mfcc,
+  mel_fft::mel_rows<P>(
+      smem, lay, n_fft, tables, csr, mel_w, n_mels, nnz, dct, n_mels * n_mfcc,
       y + (long long)clip * n_samples, n_samples, (long long)t0 * hop - pad,
       span_len, hop, rb,
       [](float mel) { return 10.f * log10f(fmaxf(mel, 1e-10f)); });
@@ -96,26 +99,48 @@ mfcc_fft_kernel(const float* __restrict__ y, const float* __restrict__ tables,
     dst[i] = coef[(i / n_mfcc) * lay.out_stride + i % n_mfcc];
 }
 
-template <int LOG2P>
+#define MFCC_FFT_PARAMS                                                     \
+  const float *__restrict__ y, const float *__restrict__ tables,            \
+      const int *__restrict__ csr, const float *__restrict__ mel_w,         \
+      const float *__restrict__ dct, float *__restrict__ out, int n_samples, \
+      int n_frames, int hop, int pad, int frames_per_block,                 \
+      int blocks_per_clip, int n_mels, int nnz, int n_mfcc, int n_fft
+#define MFCC_FFT_ARGS                                                   \
+  y, tables, csr, mel_w, dct, out, n_samples, n_frames, hop, pad,       \
+      frames_per_block, blocks_per_clip, n_mels, nnz, n_mfcc, n_fft
+
+// the radix-2 plan (P a power of two); the mixed plan, compiled for
+// mel_fft::min_blocks(P) blocks an SM
+template <int P>
+__global__ void __launch_bounds__(mel_fft::THREADS)
+mfcc_fft_kernel(MFCC_FFT_PARAMS) { mfcc_fft<P>(MFCC_FFT_ARGS); }
+
+template <int P>
+__global__ void __launch_bounds__(mel_fft::THREADS, mel_fft::min_blocks(P))
+mfcc_mixed_kernel(MFCC_FFT_PARAMS) { mfcc_fft<P>(MFCC_FFT_ARGS); }
+
+template <int P>
 cudaError_t launch_fft(const float* y, const float* tables, const int* csr,
                        const float* mel_w, const float* dct, float* out,
                        int batch, int n_samples, int n_frames, int hop, int pad,
-                       int n_mels, int nnz, int n_mfcc, cudaStream_t stream) {
-  constexpr int n_fft = 64 << LOG2P;
+                       int n_mels, int nnz, int n_mfcc, int n_fft,
+                       cudaStream_t stream) {
   int frames, blocks;
   mel_fft::block_geometry(n_frames, n_fft, hop, n_mels, nnz, n_mfcc, &frames,
                           &blocks);
   const mel_fft::Layout lay(n_fft, n_mels, nnz, n_mfcc, frames,
                             (frames - 1) * hop + n_fft);
   const size_t smem = sizeof(float) * lay.total;
+  const auto kernel = [] {
+    if constexpr (mel_fft::pow2(P)) return mfcc_fft_kernel<P>;
+    else return mfcc_mixed_kernel<P>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
-      mfcc_fft_kernel<LOG2P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mfcc_fft_kernel<LOG2P>
-      <<<(unsigned)blocks * batch, mel_fft::THREADS, smem, stream>>>(
+  kernel<<<(unsigned)blocks * batch, mel_fft::THREADS, smem, stream>>>(
           y, tables, csr, mel_w, dct, out, n_samples, n_frames, hop, pad,
-          frames, blocks, n_mels, nnz, n_mfcc);
+          frames, blocks, n_mels, nnz, n_mfcc, n_fft);
   return cudaGetLastError();
 }
 
@@ -152,7 +177,7 @@ int mfcc_fused_launch(const void* y, const void* w, const void* mel_w,
   return (int)cudaGetLastError();
 }
 
-// FFT route, n_fft a power of two from 64 to 2048. tables, csr and mel_w as
+// FFT route, n_fft one of mel_fft::with_plan's. tables, csr and mel_w as
 // for log_mel_fft_launch (log_mel_fused.cu); dct (n_mels, n_mfcc) = D^T;
 // out (batch * n_frames, n_mfcc). Returns 0 once launched, else a
 // cudaError_t.
@@ -161,11 +186,11 @@ int mfcc_fft_launch(const void* y, const void* tables, const void* csr,
                     int n_samples, int n_frames, int n_fft, int hop, int center,
                     int n_mels, int nnz, int n_mfcc, void* stream) {
   const int pad = center ? n_fft / 2 : 0;
-  return (int)mel_fft::with_log2p(n_fft, [&](auto log2p) {
-    return launch_fft<decltype(log2p)::value>(
+  return (int)mel_fft::with_plan(n_fft, [&](auto p) {
+    return launch_fft<decltype(p)::value>(
         (const float*)y, (const float*)tables, (const int*)csr,
         (const float*)mel_w, (const float*)dct, (float*)out, batch, n_samples,
-        n_frames, hop, pad, n_mels, nnz, n_mfcc, (cudaStream_t)stream);
+        n_frames, hop, pad, n_mels, nnz, n_mfcc, n_fft, (cudaStream_t)stream);
   });
 }
 

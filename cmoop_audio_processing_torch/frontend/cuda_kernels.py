@@ -10,13 +10,18 @@
 
 Each kernel has two routes, chosen by ``dft_route(cfg.n_fft)``:
 
-* ``"fft"`` — n_fft a power of two from 64 to 2048: a packed real FFT in
-  each warp, a sparse mel product over the filter bank's CSR form, frames
-  of one clip per block (csrc/mel_fft.cuh). ``log_mel_fused``'s ``top_db``
-  step is a per-clip atomic max in the kernel and one in-place pass after
-  it, in the same .cu;
-* ``"dense"`` — every other n_fft: a dense-GEMM DFT (csrc/mel_tile.cuh),
-  with ``top_db`` as torch ops after it, as the JAX wrapper ran it in XLA.
+* ``"fft"`` — the n_fft of ``FFT_SIZES``: every even n_fft from 64 to 2048
+  whose half N factors as 2^a 3^b 5^c into P points a lane (at most
+  ``FFT_MAX_POINTS``) times Q lanes (``fft_plan``). A packed real FFT by a
+  warp (the powers of two) or a group of Q lanes (the mixed-radix sizes,
+  such as 320, 400 and 480), a sparse mel product over the filter bank's
+  CSR form, frames of one clip per block (csrc/mel_fft.cuh).
+  ``log_mel_fused``'s ``top_db`` step is a per-clip atomic max in the
+  kernel and one in-place pass after it, in the same .cu;
+* ``"dense"`` — every other n_fft (odd sizes, a prime factor above 5, or
+  more than ``FFT_MAX_POINTS`` points a lane): a dense-GEMM DFT
+  (csrc/mel_tile.cuh), with ``top_db`` as torch ops after it, as the JAX
+  wrapper ran it in XLA.
 
 The kernels are compiled with nvcc for sm_90a into build/kernels/ at first
 use, from the sources in this checkout, and bound through ctypes (plain C
@@ -38,10 +43,11 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +61,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-FFT_N_FFT = (64, 2048)  # the n_fft range the FFT route is built for
+# complex points a lane holds in registers on the FFT route: the radix-2
+# plan's most (n_fft 2048), which ptxas fits with 0 spills
+FFT_MAX_POINTS = 32
 
 launch_counts: Dict[str, int] = {"mfcc_fused": 0, "log_mel_fused": 0}
 route_counts: Dict[str, int] = {
@@ -74,11 +82,53 @@ def _count(name: str, route: str) -> None:
     route_counts[f"{name}/{route}"] += 1
 
 
+def fft_plan(n_fft: int) -> Optional[Tuple[int, int]]:
+    """(P, Q) of the FFT route for ``n_fft``, with N = n_fft / 2 = P * Q: Q
+    the largest power of two dividing N, at most 32 (the lanes that take
+    one frame), P the points each lane holds; None where the route does not
+    take n_fft (odd, outside 64..2048, P not 2^a 3^b 5^c, or P above
+    ``FFT_MAX_POINTS``). P a power of two is the radix-2 plan (Q = 32)."""
+    if n_fft % 2 or not 64 <= n_fft <= 2048:
+        return None
+    half = n_fft // 2
+    q = min(half & -half, 32)
+    p = rest = half // q
+    for f in (2, 3, 5):
+        while rest % f == 0:
+            rest //= f
+    return (p, q) if rest == 1 and p <= FFT_MAX_POINTS else None
+
+
+# the n_fft the FFT route is built for: csrc/mel_fft.cuh with_plan lists
+# the same sizes, each with its P
+FFT_SIZES = tuple(n for n in range(64, 2049, 2) if fft_plan(n))
+
+
+def first_radix(length: int) -> int:
+    """The first stage's radix of the mixed plan's ``length``-point FFT in
+    registers (csrc/mel_fft.cuh first_radix): 5, then 3, then 4, then 2."""
+    for r in (5, 3, 4, 2):
+        if length % r == 0:
+            return r
+    raise ValueError(f"{length} is not 2^a 3^b 5^c")
+
+
+def dif_order(length: int, pos: int) -> int:
+    """The frequency that register ``pos`` holds after the mixed plan's
+    ``length``-point decimation-in-frequency FFT (csrc/mel_fft.cuh
+    dif_order)."""
+    if length == 1:
+        return 0
+    r = first_radix(length)
+    m = length // r
+    return r * dif_order(m, pos % m) + pos // m
+
+
 def dft_route(n_fft: int) -> str:
-    """The kernels' route for ``n_fft``: "fft" for a power of two from 64
-    to 2048 (csrc/mel_fft.cuh), "dense" for any other (csrc/mel_tile.cuh)."""
-    lo, hi = FFT_N_FFT
-    return "fft" if lo <= n_fft <= hi and n_fft & (n_fft - 1) == 0 else "dense"
+    """The kernels' route for ``n_fft``: "fft" for the sizes of
+    ``FFT_SIZES`` (csrc/mel_fft.cuh), "dense" for any other
+    (csrc/mel_tile.cuh)."""
+    return "fft" if fft_plan(n_fft) else "dense"
 
 
 def _nvcc() -> str:
@@ -139,6 +189,35 @@ def ptxas_report(name: str) -> str:
     return _compile(name, ("-Xptxas", "-v"))[1]
 
 
+def kernel_function(mangled: str) -> str:
+    """'name<arg>' of a mangled kernel function: the <length><name> part
+    that names a *_kernel, and its integer template argument, if any."""
+    for i in range(len(mangled)):
+        m = re.match(r"(\d+)(\w+?_kernel)(IL[a-z](\d+)E)?", mangled[i:])
+        if m and int(m.group(1)) == len(m.group(2)):
+            return f"{m.group(2)}<{m.group(4)}>" if m.group(4) else m.group(2)
+    return mangled
+
+
+def ptxas_summary(report: str):
+    """(kernel function, registers, stack frame bytes, spill store bytes,
+    spill load bytes) for each entry function in a ``ptxas_report``."""
+    rows, name, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_function(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *frame))
+            name, frame = None, (0, 0, 0)
+    return rows
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # each library's C entry points and their argument types (all return int)
 _ENTRY_POINTS = {
@@ -186,28 +265,45 @@ def _mfcc_operands(cfg: FrontendConfig, device: torch.device):
     return (*_log_mel_operands(cfg, device), _put(dct_matrix(cfg).T, device))
 
 
+def bitrev(v: int, bits: int) -> int:
+    return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+
 def fft_tables(cfg: FrontendConfig) -> np.ndarray:
     """The FFT route's constant table, float32, computed in float64, with
-    N = n_fft / 2 and W_M = exp(-2*pi*i/M) (csrc/mel_fft.cuh table_floats):
-    window (n_fft) | W_N^j, j < N | W_n_fft^k, k <= N/2 | W_N^(lane *
-    bitrev(r)) at [r][lane] for the N/32 registers r and 32 lanes; the last
-    three as (re, im) pairs."""
+    N = n_fft / 2 = P * Q (``fft_plan``) and W_M = exp(-2*pi*i/M)
+    (csrc/mel_fft.cuh table_floats), all but the window as (re, im) pairs:
+
+    * radix 2 (P a power of two, Q = 32): window (n_fft) | W_N^j, j < N |
+      W_n_fft^k, k <= N/2 | W_N^(lane * bitrev(r)) at [r][lane] for the P
+      registers r and 32 lanes;
+    * mixed radix: window (n_fft) | W_N^j, j < N | W_N^(l * k1(r)) at
+      [r][l] | W_n_fft^(k1(r) + P * bitrev_Q(l)) at [r][l], for the P
+      registers r and Q lanes l, where k1(r) = ``dif_order(P, r)`` is the
+      frequency register r holds after the in-register FFT; the last two
+      are what lane l reads at step r (consecutive over a group's lanes:
+      conflict-free)."""
+    plan = fft_plan(cfg.n_fft)
+    if plan is None:
+        raise ValueError(f"the FFT route does not take n_fft {cfg.n_fft}")
+    p, q = plan
     half = cfg.n_fft // 2
-    regs = half // 32
-    bits = regs.bit_length() - 1
-    rev = [int(format(r, f"0{bits}b")[::-1], 2) if bits else 0
-           for r in range(regs)]
 
     def pairs(turns):
         angles = 2.0 * np.pi * np.asarray(turns, np.float64).ravel()
         return np.stack([np.cos(angles), -np.sin(angles)], axis=1).ravel()
 
-    return np.concatenate([
-        window(cfg),
-        pairs(np.arange(half) / half),
-        pairs(np.arange(half // 2 + 1) / cfg.n_fft),
-        pairs(np.outer(rev, np.arange(32)) / half),
-    ]).astype(np.float32)
+    head = [window(cfg), pairs(np.arange(half) / half)]
+    if p & (p - 1) == 0:
+        rev = [bitrev(r, p.bit_length() - 1) for r in range(p)]
+        tail = [pairs(np.arange(half // 2 + 1) / cfg.n_fft),
+                pairs(np.outer(rev, np.arange(32)) / half)]
+    else:
+        k1 = np.array([dif_order(p, r) for r in range(p)])
+        k2 = np.array([bitrev(l, q.bit_length() - 1) for l in range(q)])
+        tail = [pairs(np.outer(k1, np.arange(q)) / half),
+                pairs((k1[:, None] + p * k2[None, :]) / cfg.n_fft)]
+    return np.concatenate(head + tail).astype(np.float32)
 
 
 def mel_csr(cfg: FrontendConfig):

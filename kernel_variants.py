@@ -9,7 +9,8 @@ and times each variant's FFT route through the wrappers' own launch code
 (``cuda_kernels._log_mel_launch`` / ``_mfcc_launch`` on the variant's
 library) at chip_smoke.py's path shapes: ``log_mel_fused`` at 512 5-s clips
 (hop 160, dB with top_db 80) and ``mfcc_fused`` at 4096 1-s clips (hop 360,
-13 MFCC), n_fft 512. A substitution whose text is not in the header is an
+13 MFCC), at n_fft 512 (the radix-2 plan) and 400 (the mixed-radix plan,
+P = 25 points a lane). A substitution whose text is not in the header is an
 error. A variant with a phase cut out computes something else; the others
 must still match the plain versions (atol 3e-2, rtol 1e-3). Prints one JSON
 line per variant and the card's name and power limit; nothing here is used
@@ -27,8 +28,15 @@ from concurrent.futures import ThreadPoolExecutor
 
 HEADER = "mel_fft.cuh"
 REPS = 100  # timed launches per variant and kernel
-PHASE_A = ("  for (int f = warp; f < rb; f += WARPS)\n    frame_power",
-           "  for (int f = warp; f < 0; f += WARPS)\n    frame_power")
+PHASE_A = [("    for (int f = warp; f < rb; f += WARPS)\n      frame_power",
+            "    for (int f = warp; f < 0; f += WARPS)\n      frame_power"),
+           ("for (int f0 = warp * per_warp; f0 < rb; f0 += WARPS * per_warp) {",
+            "for (int f0 = warp * per_warp; f0 < 0; f0 += WARPS * per_warp) {")]
+# the mixed plan's register plan (mel_fft.cuh rolled_stages, min_blocks)
+UNROLLED = ("constexpr bool rolled_stages(int P) { return P > 20; }",
+            "constexpr bool rolled_stages(int P) { return false; }")
+ONE_BLOCK = ("return rolled_stages(P) ? 1 : 2;", "return 1;")
+N_FFTS = (512, 400)
 PHASE_B = ("for (int i = 0; i < count[m]; ++i) acc = fmaf(pm[i], wm[i], acc);",
            "acc = pm[0];")
 
@@ -39,24 +47,27 @@ def budget(kib: int):
 
 VARIANTS = {
     "as_built": [],
-    "no_fft": [PHASE_A],          # phase A (the FFT and split) cut out
+    "no_fft": PHASE_A,            # phase A (the FFT and split) cut out
     "no_mel": [PHASE_B],          # phase B (the mel product) cut out
-    "no_fft_no_mel": [PHASE_A, PHASE_B],  # loads, barriers, epilogue only
+    "no_fft_no_mel": PHASE_A + [PHASE_B],  # loads, barriers, epilogue only
     "smem_56k": [budget(56)],     # four blocks an SM
     "smem_90k": [budget(90)],
     "smem_110k": [budget(110)],   # two blocks an SM
     "warps_4": [("constexpr int WARPS = 8;", "constexpr int WARPS = 4;")],
     "warps_16": [("constexpr int WARPS = 8;", "constexpr int WARPS = 16;")],
+    # P > 20 with unrolled cross-lane stages: capped at 128 registers (two
+    # blocks an SM, spilling), or uncapped (one block an SM)
+    "unrolled_stages": [UNROLLED],
+    "unrolled_stages_one_block": [UNROLLED, ONE_BLOCK],
 }
 CHECKED = ("as_built", "smem_56k", "smem_90k", "smem_110k", "warps_4",
-           "warps_16")
+           "warps_16", "unrolled_stages", "unrolled_stages_one_block")
 KERNELS = ("log_mel_fused", "mfcc_fused")
 
 
 def build(name: str, root: str):
-    """({kernel: library}, ptxas rows of the n_fft 512 kernels) of one
-    variant."""
-    import chip_smoke as cs
+    """({kernel: library}, ptxas rows of the n_fft 512 and 400 kernels,
+    P = 8 and 25) of one variant."""
     from cmoop_audio_processing_torch.frontend import cuda_kernels as ck
 
     src = os.path.join(root, name)
@@ -79,12 +90,15 @@ def build(name: str, root: str):
              os.path.join(src, f"{kernel}.cu")], capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed:\n{proc.stderr}")
-        ptxas += [r for r in cs.ptxas_summary(proc.stderr) if "<3>" in r[0]]
+        ptxas += [r for r in ck.ptxas_summary(proc.stderr)
+                  if "<8>" in r[0] or "<25>" in r[0]]
         libs[kernel] = ck.load_library(kernel, out)
     return libs, ptxas
 
 
 def main() -> int:
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -111,17 +125,21 @@ def main() -> int:
             cs.synth_clips(rng, 4096, cs.KWS_N_SAMPLES), device="cuda"),
             FrontendConfig(hop_length=cs.KWS_HOP)),
     }
-    want = {k: plain[k](*inputs[k]) for k in KERNELS}
+    configs = {(k, n): dataclasses.replace(inputs[k][1], n_fft=n)
+               for k in KERNELS for n in N_FFTS}
+    want = {key: plain[key[0]](inputs[key[0]][0], cfg)
+            for key, cfg in configs.items()}
     for name, (libs, ptxas) in built.items():
         rec = {"variant": name, "ptxas": ptxas}
-        for kernel in KERNELS:
-            y, cfg = inputs[kernel]
+        for (kernel, n_fft), cfg in configs.items():
+            y = inputs[kernel][0]
             assert ck.dft_route(cfg.n_fft) == "fft"
             run = lambda: launch[kernel](libs[kernel], y, cfg)  # noqa: E731
             if name in CHECKED:
-                rec[f"{kernel}_max_abs_err"] = cs.check_close(
-                    f"{kernel} ({name})", run(), want[kernel])
-            rec[f"{kernel}_ms"] = cs.cuda_time_ms(run, reps=REPS)
+                rec[f"{kernel}_{n_fft}_max_abs_err"] = cs.check_close(
+                    f"{kernel} ({name}, n_fft {n_fft})", run(),
+                    want[(kernel, n_fft)])
+            rec[f"{kernel}_{n_fft}_ms"] = cs.cuda_time_ms(run, reps=REPS)
         print(json.dumps(rec), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

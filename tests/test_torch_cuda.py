@@ -60,12 +60,22 @@ def _launch(fn, name, y, cfg):
     (3, 16000, dataclasses.replace(KWS, n_fft=2048, n_mels=64)),
     (3, 16000, dataclasses.replace(KWS, n_fft=400)),
     (3, 16000, dataclasses.replace(KWS, n_fft=401)),
+    (3, 16000, dataclasses.replace(KWS, n_fft=402)),
     (3, 16000, dataclasses.replace(KWS, win_length=400)),
     (3, 16000, dataclasses.replace(KWS, hop_length=161)),
     (5, 12345, tf.FrontendConfig(n_mfcc=13)),
+    (64, 16000, dataclasses.replace(KWS, n_fft=480)),
+    (3, 16000, dataclasses.replace(KWS, n_fft=320)),
+    (3, 16000, dataclasses.replace(KWS, n_fft=960, n_mels=64)),
+    (5, 16000, dataclasses.replace(KWS, n_fft=400, hop_length=161,
+                                   center=False)),
+    (5, 12345, tf.FrontendConfig(n_fft=400, n_mfcc=13)),
 ], ids=["kws_64x16000", "birdclef_3x80000", "uncentred", "short_clip",
-        "fft_256", "fft_1024", "fft_64", "fft_2048", "dense_400", "dense_401",
-        "win_length_400", "fft_odd_hop_161", "ragged_5x12345"])
+        "fft_256", "fft_1024", "fft_64", "fft_2048", "fft_mixed_400",
+        "dense_401", "dense_402", "win_length_400", "fft_odd_hop_161",
+        "ragged_5x12345", "fft_mixed_480_64x16000", "fft_mixed_320",
+        "fft_mixed_960", "fft_mixed_400_uncentred_odd_hop_161",
+        "fft_mixed_400_ragged_5x12345"])
 def test_mfcc_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
     """atol 3e-2 / rtol 1e-3: the JAX package's Pallas-vs-XLA tolerance
     (tests/test_frontend.py); both sides are full f32 and differ only in
@@ -95,16 +105,26 @@ def test_mfcc_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
     (3, 16000, tf.FrontendConfig(hop_length=161)),
     (3, 16000, tf.FrontendConfig(n_mels=39)),
     (5, 12345, tf.FrontendConfig(top_db=60.0)),
+    (3, 16000, tf.FrontendConfig(n_fft=401, log="natural")),
+    (3, 16000, tf.FrontendConfig(n_fft=402)),
+    (3, 80000, tf.FrontendConfig(n_fft=480)),
+    (3, 16000, tf.FrontendConfig(n_fft=800, n_mels=64)),
+    (5, 12345, tf.FrontendConfig(n_fft=400, hop_length=161, top_db=60.0)),
+    (2, 700, tf.FrontendConfig(n_fft=400)),
 ], ids=["birdclef_3x80000_db_top_db", "birdclef_3x80000_natural", "uncentred",
         "short_clip", "shared_blocks_7x16000_raw_db", "fft_256", "fft_1024",
-        "fft_64", "fft_2048", "dense_400", "dense_400_natural", "dense_401",
-        "win_length_400", "fft_odd_hop_161", "odd_clip_rows_39_mels",
-        "ragged_5x12345_top_db_60"])
+        "fft_64", "fft_2048", "fft_mixed_400", "fft_mixed_400_natural",
+        "dense_401", "win_length_400", "fft_odd_hop_161",
+        "odd_clip_rows_39_mels", "ragged_5x12345_top_db_60",
+        "dense_401_natural", "dense_402", "fft_mixed_480_3x80000",
+        "fft_mixed_800", "fft_mixed_400_odd_hop_ragged_top_db_60",
+        "fft_mixed_400_short_clip"])
 def test_log_mel_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg):
     """atol 3e-2 / rtol 1e-3, as for mfcc_fused. On the dense route 7 clips
     of 101 frames put frames of two clips in most 64-frame blocks; on the
     FFT route 12345 samples (78 frames at hop 160) leave a ragged last block
-    in every clip, an odd hop takes the unaligned frame loads, and 101
+    in every clip (and, on the mixed plan, lane groups past the block's
+    last frame), an odd hop takes the unaligned frame loads, and 101
     frames of 39 mels (a clip's output not a multiple of 4 floats) take the
     scalar top_db pass."""
     y = torch.as_tensor(_clips(n, n_samples), device=cuda)
@@ -116,7 +136,8 @@ def test_log_mel_fused_kernel_matches_its_plain_version(cuda, n, n_samples, cfg)
 
 
 @pytest.mark.parametrize("name", ["mfcc_fused", "log_mel_fused"])
-@pytest.mark.parametrize("n_fft", [512, 400], ids=["fft", "dense"])
+@pytest.mark.parametrize("n_fft", [512, 400, 480, 401],
+                         ids=["fft", "fft_mixed_400", "fft_mixed_480", "dense"])
 def test_two_launches_give_identical_bits(cuda, name, n_fft):
     y = torch.as_tensor(_clips(6, 80000, seed=4), device=cuda)
     cfg = tf.FrontendConfig(n_fft=n_fft)
@@ -125,12 +146,15 @@ def test_two_launches_give_identical_bits(cuda, name, n_fft):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("n_fft,n_mels", [(512, 40), (400, 40), (512, 39)],
-                         ids=["fft", "dense", "fft_scalar_pass"])
+@pytest.mark.parametrize("n_fft,n_mels", [(512, 40), (401, 40), (512, 39),
+                                         (400, 40), (480, 40), (400, 39)],
+                         ids=["fft", "dense", "fft_scalar_pass",
+                              "fft_mixed_400", "fft_mixed_480",
+                              "fft_mixed_400_scalar_pass"])
 def test_log_mel_top_db_is_the_wrappers_rule_on_the_raw_db(cuda, n_fft, n_mels):
     """The FFT route's in-kernel top_db step (atomic clip max, then one
-    in-place pass, by float4 or, at 501 x 39 floats a clip, by float) gives
-    _top_db of the kernel's own raw dB, bit for bit."""
+    in-place pass, by float4 or, at 501 x 39 floats a clip, by float), on
+    both plans, gives _top_db of the kernel's own raw dB, bit for bit."""
     y = torch.as_tensor(_clips(5, 80000, seed=6), device=cuda)
     cfg = tf.FrontendConfig(n_fft=n_fft, n_mels=n_mels, top_db=80.0)
     raw = tk.log_mel_fused(y, dataclasses.replace(cfg, top_db=None))
@@ -140,19 +164,35 @@ def test_log_mel_top_db_is_the_wrappers_rule_on_the_raw_db(cuda, n_fft, n_mels):
 
 
 def test_every_n_fft_of_the_fft_route_launches(cuda):
-    """dft_route's range (FFT_N_FFT) and the sizes the kernels are built
-    for (mel_fft.cuh with_log2p) agree: each power of two in the range
-    launches on the FFT route and matches the plain version."""
+    """dft_route's sizes (FFT_SIZES) and the sizes the kernels are built
+    for (mel_fft.cuh with_plan) agree: each launches on the FFT route and
+    matches the plain version."""
     y = torch.as_tensor(_clips(2, 8000, seed=3), device=cuda)
-    lo, hi = tk.FFT_N_FFT
-    n_fft = lo
-    while n_fft <= hi:
+    for n_fft in tk.FFT_SIZES:
         cfg = tf.FrontendConfig(n_fft=n_fft, n_mels=20, n_mfcc=13)
         for name, ref in (("mfcc_fused", tk.mfcc_fused_reference),
                           ("log_mel_fused", tk.log_mel_fused_reference)):
+            assert tk.dft_route(n_fft) == "fft"
             got = _launch(getattr(tk, name), name, y, cfg)
             torch.testing.assert_close(got, ref(y, cfg), atol=3e-2, rtol=1e-3)
-        n_fft *= 2
+
+
+@pytest.mark.parametrize("name", ["mfcc_fused", "log_mel_fused"])
+def test_fft_route_kernels_spill_nothing(cuda, name):
+    """ptxas fits every FFT-route instantiation (one per P of with_plan:
+    *_fft_kernel<P> for the radix-2 plan, *_mixed_kernel<P> for the mixed
+    one, whose registers mel_fft.cuh min_blocks caps): no spill stores or
+    loads."""
+    rows = {fn: rest for fn, *rest in tk.ptxas_summary(tk.ptxas_report(name))}
+    stem = name.replace("_fused", "")
+    points = sorted({tk.fft_plan(n)[0] for n in tk.FFT_SIZES})
+    got = sorted(int(fn.split("<")[1][:-1]) for fn in rows
+                 if fn.startswith((f"{stem}_fft_kernel<", f"{stem}_mixed_kernel<")))
+    assert got == points
+    for p in points:
+        kernel = f"{stem}_{'fft' if p & (p - 1) == 0 else 'mixed'}_kernel"
+        regs, _, stores, loads = rows[f"{kernel}<{p}>"]
+        assert (stores, loads) == (0, 0), (p, regs, rows)
 
 
 def test_extract_features_on_cuda_goes_through_the_kernel(cuda):
@@ -169,16 +209,19 @@ def test_extract_features_on_cuda_goes_through_the_kernel(cuda):
     np.testing.assert_allclose(got, want, atol=3e-2, rtol=1e-3)
 
 
-def test_extract_features_at_n_fft_400_takes_the_dense_route(cuda):
-    """An n_fft the FFT route does not take: extraction on the card goes
-    through each kernel's dense route and matches the CPU (the plain
+@pytest.mark.parametrize("n_fft,route", [(401, "dense"), (400, "fft")])
+def test_extract_features_at_a_25_ms_window_takes_its_route(cuda, n_fft, route):
+    """Extraction on the card at a 25-ms window: 400 goes through each
+    kernel's FFT route (the mixed-radix plan), 401, which the FFT route
+    does not take, through the dense route; both match the CPU (the plain
     versions, held against JAX by tests/test_torch_fft_operands.py)."""
     ys = _clips(3, 16000, seed=2)
     for kind, name in (("mfcc", "mfcc_fused"), ("log_mel", "log_mel_fused")):
-        cfg = dataclasses.replace(KWS, n_fft=400)
-        before = tk.route_counts[f"{name}/dense"]
+        cfg = dataclasses.replace(KWS, n_fft=n_fft)
+        before = dict(tk.route_counts)
         got = tf.extract_features(ys, cfg, kind=kind, device="cuda")
-        assert tk.route_counts[f"{name}/dense"] == before + 1
+        assert {k: v - before[k] for k, v in tk.route_counts.items()
+                if v != before[k]} == {f"{name}/{route}": 1}
         want = tf.extract_features(ys, cfg, kind=kind, device="cpu")
         assert got.shape == want.shape == (3, cfg.n_frames(16000),
                                            13 if kind == "mfcc" else 40)

@@ -16,6 +16,10 @@ compares them paired over the seeds; the port also runs alone on the card
         --out DIR                     # the port alone, on the card
     python tests/test_torch_search_parity.py --summarize --out DIR
         [--cuda-from DIR]             # summary.json from the seed files
+    python tests/test_torch_search_parity.py --port-only --truth DIR
+        [--table-suffix S] --out DIR2 # the port on other tables
+    python tests/test_torch_search_parity.py --port-tables-summary
+                                      # port_tables/summary.json
 
 The committed study is ``cmoop_audio_processing_torch/examples/artifacts/
 search_parity/``: ``seed_<s>.json`` (each package's report, its 16 ratios
@@ -33,6 +37,15 @@ and the other methods' GD and IGD get the same test and do not decide.
 Torch runs on one thread and JAX on the CPU, so a seed's record is the
 same on every rerun, less its seconds; JAX's floats may depend on the
 CPU's thread pool, so the rerun is held on the machine that wrote it.
+
+``--truth DIR`` runs the searches (and scores their fronts) on other
+tables: ``DIR/exhaustive_<T>_288<S>.csv`` with ``--table-suffix S``. The
+committed ``port_tables/`` beside the study holds the port alone on the
+CPU on the port's own card-trained tables
+(``examples/artifacts/exhaustive_h100/``), those of seed 7 and of seed
+11, at the study's ten seeds (ROADMAP §3.8): ``seed<t>_tables/
+port_cpu_seed_<s>.json``, and ``summary.json`` with the ratios of §3.8
+per seed, their spread and the harness's verdict per seed.
 """
 
 from __future__ import annotations
@@ -70,8 +83,18 @@ torch.set_num_threads(1)
 
 EXAMPLES = os.path.join(ROOT, "examples")
 TRUTH = os.path.join(EXAMPLES, "exhaustive")
-ARTIFACT = os.path.join(ROOT, "cmoop_audio_processing_torch", "examples",
-                        "artifacts", "search_parity")
+ARTIFACTS = os.path.join(ROOT, "cmoop_audio_processing_torch", "examples",
+                         "artifacts")
+ARTIFACT = os.path.join(ARTIFACTS, "search_parity")
+# the port alone on its own card-trained tables (PORT_TRUTH, the files of
+# each table seed: exhaustive_<T>_288<suffix>.csv) and its records
+PORT_TABLES = os.path.join(ARTIFACT, "port_tables")
+PORT_TRUTH = os.path.join(ARTIFACTS, "exhaustive_h100")
+TABLE_SEEDS = {7: "", 11: "_seed11"}  # table seed: file suffix
+# the card's all-8 replicas at the tables' seeds (ROADMAP §3.8)
+REPLICAS = {7: os.path.join(ARTIFACTS, "all8_h100"),
+            11: os.path.join(ARTIFACTS, "all8_h100_seed11")}
+RATIOS_38 = ("SA_NSGA-II_LS", "INIT_SA_NSGA-II", "INIT_SA_NSGA-II_LS")
 # the JAX replicas' five seeds, then five more
 SEEDS = (7, 11, 23, 31, 41, 53, 61, 71, 83, 97)
 POP, GEN = 10, 8
@@ -130,7 +153,7 @@ def _argv(seed, out, pop, gen):
             "--out", out]
 
 
-def run_jax(seed, out, pop=POP, gen=GEN):
+def run_jax(seed, out, pop=POP, gen=GEN, truth=TRUTH):
     """The JAX package's examples/run_all8.py with ``--fake-eval`` and its
     ``make_evaluator`` returning the port's ``TableEvaluator`` for the
     config's template. Returns (exit code, plain SA's evaluations)."""
@@ -138,7 +161,7 @@ def run_jax(seed, out, pop=POP, gen=GEN):
     log = []
 
     def make_evaluator(cfg, fake, fitness_cache_path=None):
-        return t_exh.TableEvaluator(TRUTH, cfg.train.template,
+        return t_exh.TableEvaluator(truth, cfg.train.template,
                                     cfg.train.num_classes)
 
     mod.make_evaluator = make_evaluator
@@ -148,12 +171,12 @@ def run_jax(seed, out, pop=POP, gen=GEN):
     return rc, log
 
 
-def run_port(seed, out, device="cpu", pop=POP, gen=GEN):
+def run_port(seed, out, device="cpu", pop=POP, gen=GEN, truth=TRUTH):
     """The port's ``run_all8 --table-eval`` on ``device``. Returns (exit
     code, plain SA's evaluations)."""
     log = []
     with _patched(t_all8, run=_logging_run(t_all8.run, log)), _quiet():
-        rc = t_all8.main(["--table-eval", TRUTH, "--device", device]
+        rc = t_all8.main(["--table-eval", truth, "--device", device]
                          + _argv(seed, out, pop, gen))
     return rc, log
 
@@ -167,11 +190,11 @@ def _quiet():
 
 # -- one package's record -------------------------------------------------------
 
-def score(out):
+def score(out, truth=TRUTH):
     """Each method's GD, IGD and HV fraction against the tables' own truth
-    (``run_exhaustive.report_on`` on the JAX tables, the same for both
+    (``run_exhaustive.report_on`` on the tables, the same for both
     packages), from the fronts in a harness's ``out``."""
-    truths = {t: t_exh.read_table(os.path.join(TRUTH, f"exhaustive_{t}_288.csv"))
+    truths = {t: t_exh.read_table(os.path.join(truth, f"exhaustive_{t}_288.csv"))
               for t in ("B", "A")}
     with tempfile.TemporaryDirectory() as fronts, _quiet():
         t_all8.export(out, fronts)
@@ -181,7 +204,7 @@ def score(out):
             for m, v in rep["methods"].items()}
 
 
-def package_record(out, rc, log, wall):
+def package_record(out, rc, log, wall, truth=TRUTH):
     """What one harness run gives the study."""
     report = t_all8._read_json(os.path.join(out, "compare_report_all8.json"))
     refits, seconds = {}, {}
@@ -194,7 +217,7 @@ def package_record(out, rc, log, wall):
         "rc": rc,
         "report": report,
         "ratios": t_all8.ratios(report) if report else {},
-        "truth": score(out),
+        "truth": score(out, truth),
         "gp_refits": refits,
         "plain_sa_evaluations": log,
         "seconds": {"wall_s": wall, "gp_refit_s": float(sum(seconds.values())),
@@ -205,7 +228,8 @@ def package_record(out, rc, log, wall):
 def timed(fn, seed, out, **kw):
     t0 = time.perf_counter()
     rc, log = fn(seed, out, **kw)
-    return package_record(out, rc, log, time.perf_counter() - t0)
+    return package_record(out, rc, log, time.perf_counter() - t0,
+                          kw.get("truth", TRUTH))
 
 
 def seed_record(seed, pop=POP, gen=GEN):
@@ -218,9 +242,26 @@ def seed_record(seed, pop=POP, gen=GEN):
                                   pop=pop, gen=gen)}
 
 
-def port_record(seed, device, pop=POP, gen=GEN):
+def port_record(seed, device, pop=POP, gen=GEN, truth=TRUTH):
     with tempfile.TemporaryDirectory() as d:
-        return timed(run_port, seed, d, device=device, pop=pop, gen=gen)
+        return timed(run_port, seed, d, device=device, pop=pop, gen=gen,
+                     truth=truth)
+
+
+@contextlib.contextmanager
+def staged_truth(src, suffix=""):
+    """A directory holding ``src``'s ``exhaustive_<T>_288<suffix>.csv`` as
+    ``exhaustive_<T>_288.csv``, the names ``TableEvaluator`` reads."""
+    if not suffix:
+        yield src
+        return
+    import shutil
+
+    with tempfile.TemporaryDirectory() as d:
+        for t in ("A", "B"):
+            shutil.copyfile(os.path.join(src, f"exhaustive_{t}_288{suffix}.csv"),
+                            os.path.join(d, f"exhaustive_{t}_288.csv"))
+        yield d
 
 
 # -- the paired tests -----------------------------------------------------------
@@ -314,6 +355,65 @@ def summarize(seeds, port_cuda=None):
     }
 
 
+def port_tables_summary(records, replicas):
+    """summary.json of the port-table study from its records (``{table
+    seed: {seed: port_cpu record}}``) and the card's replicas (``{table
+    seed: (compare_report_all8, meta)}``): per table, each seed's IGD ratios
+    of RATIOS_38 to SA_NSGA-II, plain SA_NSGA-II's HV fraction and the
+    harness's exit code (1: the verdict fails); the ratios' spread over the
+    seeds beside the JAX replicas' range (the replica's meta.json) and
+    whether the spread reaches below it; and the replica's ratios at the
+    table's seed, and whether each lies inside the spread."""
+    out = {}
+    for table, recs in sorted(records.items()):
+        per_seed = {}
+        for s, rec in sorted(recs.items()):
+            per_seed[str(s)] = {
+                "igd_ratio": {m: rec["ratios"].get(m, {}).get("igd")
+                              for m in RATIOS_38},
+                "plain_hv_fraction":
+                    rec["truth"][PLAIN]["hv_fraction_of_attainable"],
+                "rc": rec["rc"],
+            }
+        spread = {m: [min(v["igd_ratio"][m] for v in per_seed.values()),
+                      max(v["igd_ratio"][m] for v in per_seed.values())]
+                  for m in RATIOS_38}
+        report, meta = replicas[table]
+        rep = t_all8.ratios(report)
+        replica = {m: rep[m]["igd"] for m in RATIOS_38}
+        jax = {m: [meta["ratios_to_SA_NSGA-II"][m]["igd"]["jax_min"],
+                   meta["ratios_to_SA_NSGA-II"][m]["igd"]["jax_max"]]
+               for m in RATIOS_38}
+        out[str(table)] = {
+            "tables": os.path.relpath(PORT_TRUTH, ROOT)
+                      + f"/exhaustive_{{A,B}}_288{TABLE_SEEDS[table]}.csv",
+            "seeds": per_seed,
+            "igd_ratio_spread": spread,
+            "jax_igd_ratio_range": jax,
+            "spread_below_jax_min": {m: spread[m][0] < jax[m][0]
+                                     for m in RATIOS_38},
+            "verdict_fails": sum(v["rc"] != 0 for v in per_seed.values()),
+            "replica_igd_ratio": replica,
+            "replica_inside_spread": {
+                m: spread[m][0] <= replica[m] <= spread[m][1]
+                for m in RATIOS_38},
+        }
+    return out
+
+
+def read_port_tables(d=PORT_TABLES):
+    """``{table seed: {seed: port_cpu record}}`` from ``d``."""
+    return {t: {_read(p)["seed"]: _read(p)["port_cpu"] for p in sorted(
+        glob.glob(os.path.join(d, f"seed{t}_tables", "port_cpu_seed_*.json")))}
+        for t in TABLE_SEEDS}
+
+
+def replica_reports():
+    return {t: (_read(os.path.join(d, "compare_report_all8.json")),
+                _read(os.path.join(d, "meta.json")))
+            for t, d in REPLICAS.items()}
+
+
 def _read(path):
     with open(path) as f:
         return json.load(f)
@@ -371,7 +471,18 @@ def main(argv=None):
                    help="only write summary.json from --out's seed files")
     p.add_argument("--cuda-from", metavar="DIR",
                    help="take port_cuda from DIR's port_cuda_seed_*.json")
+    p.add_argument("--truth", default=TRUTH, metavar="DIR",
+                   help="the tables the searches read and are scored on")
+    p.add_argument("--table-suffix", default="", metavar="S",
+                   help="read DIR/exhaustive_<T>_288<S>.csv")
+    p.add_argument("--port-tables-summary", action="store_true",
+                   help="write port_tables/summary.json from its records")
     args = p.parse_args(argv)
+    if args.port_tables_summary:
+        summary = port_tables_summary(read_port_tables(), replica_reports())
+        _write(os.path.join(PORT_TABLES, "summary.json"), summary)
+        print(json.dumps({t: v["verdict_fails"] for t, v in summary.items()}))
+        return 0
     # the JAX package on the CPU as its tests run it (tests/conftest.py)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     os.environ.setdefault("XLA_FLAGS",
@@ -380,8 +491,12 @@ def main(argv=None):
     if args.port_only:
         os.makedirs(args.out, exist_ok=True)
         for s in args.seeds:
-            rec = port_record(s, args.device)
+            with staged_truth(args.truth, args.table_suffix) as truth:
+                rec = port_record(s, args.device, truth=truth)
             rec["device"] = t_exh.device_record(args.device)
+            rec["tables"] = os.path.relpath(
+                os.path.abspath(args.truth), ROOT).replace(os.sep, "/") + \
+                f"/exhaustive_{{A,B}}_288{args.table_suffix}.csv"
             _write(os.path.join(args.out, f"port_{args.device}_seed_{s}.json"),
                    {"seed": s, "pop": POP, "gen": GEN,
                     f"port_{args.device}": rec})
@@ -584,6 +699,34 @@ def test_summary_recomputes_from_the_committed_seeds():
              if t["p"] < ALPHA]
     assert summary["decision"]["primary_flags"] == flags
     assert summary["decision"]["branch"] == ("b" if flags else "a")
+
+
+def test_port_table_records_recompute_and_hold_the_replicas():
+    """The port-table study (ROADMAP §3.8, closed): twenty committed
+    records, the port's searches at the study's ten seeds on the port's own
+    seed-7 and seed-11 tables; port_tables/summary.json is what
+    ``port_tables_summary`` computes from them and the card's replicas. On
+    each table, with no training in the loop, each of the three IGD ratios
+    of §3.8 falls below the JAX replicas' range at some seed, and the
+    harness's verdict fails at 3 of the 10 seeds."""
+    records = read_port_tables()
+    assert {t: sorted(r) for t, r in records.items()} == {
+        t: list(SEEDS) for t in TABLE_SEEDS}
+    for t, recs in records.items():
+        for rec in recs.values():
+            assert rec["tables"] == (
+                "cmoop_audio_processing_torch/examples/artifacts/exhaustive_h100"
+                f"/exhaustive_{{A,B}}_288{TABLE_SEEDS[t]}.csv")
+            assert rec["device"] == {"card": None, "nvidia_smi": None}
+            assert sum(rec["gp_refits"].values()) == 102
+    summary = _read(os.path.join(PORT_TABLES, "summary.json"))
+    got = port_tables_summary(records, replica_reports())
+    assert json.dumps(got, sort_keys=True) == json.dumps(summary,
+                                                         sort_keys=True)
+    for t in TABLE_SEEDS:
+        assert summary[str(t)]["spread_below_jax_min"] == {
+            m: True for m in RATIOS_38}
+        assert summary[str(t)]["verdict_fails"] == 3
 
 
 def _strip_seconds(obj):
