@@ -68,6 +68,7 @@ for training in driver tests.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -89,10 +90,12 @@ from ..parallel.mesh import (
     replicated,
     shard_population,
 )
+from ..utils.profiling import span
 from .trainer import (
     PopulationTrainer,
     TrainSettings,
     gather_lanes,
+    host_read,
     pad_dataset,
     train_key_of,
 )
@@ -105,6 +108,30 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+@contextlib.contextmanager
+def _launch_span(n: int, total: int, spec: BucketSpec, pop: int, t0: float,
+                 log: bool):
+    """The ``evaluator.launch`` span of launch ``n`` of ``total``; with
+    ``log`` (CMOOP_LOG_LAUNCHES=1) its start and end are printed to stderr,
+    timed from ``t0``."""
+    if log:
+        print(
+            f"[launch {n+1}/{total}] f={spec.filters} "
+            f"k={spec.kernel} blocks={spec.max_blocks} "
+            f"pop={pop} start t+{time.perf_counter()-t0:.1f}s",
+            file=sys.stderr, flush=True,
+        )
+    with span("evaluator.launch", filters=spec.filters, kernel=spec.kernel,
+              blocks=spec.max_blocks, pop=pop):
+        yield
+    if log:
+        print(
+            f"[launch {n+1}/{total}] done "
+            f"t+{time.perf_counter()-t0:.1f}s",
+            file=sys.stderr, flush=True,
+        )
 
 
 class PopulationEvaluator:
@@ -229,6 +256,10 @@ class PopulationEvaluator:
     def evaluate(self, genomes: Sequence[Genome], seed: int = 0) -> List[Fitness]:
         """Evaluate all genomes; returns fitness per genome in input order.
         Genomes sharing a bucket train together in one population."""
+        with span("evaluator.call", n_genomes=len(genomes), seed=seed):
+            return self._evaluate(genomes, seed)
+
+    def _evaluate(self, genomes: Sequence[Genome], seed: int) -> List[Fitness]:
         t0 = time.perf_counter()
         self._launch_count = 0
         for g in genomes:
@@ -299,44 +330,35 @@ class PopulationEvaluator:
         log_launches = os.environ.get("CMOOP_LOG_LAUNCHES", "0") == "1"
         chunk_records = []
         for n, (chunk_idx, spec, padded) in enumerate(launches):
-            if log_launches:
-                print(
-                    f"[launch {n+1}/{len(launches)}] f={spec.filters} "
-                    f"k={spec.kernel} blocks={spec.max_blocks} "
-                    f"pop={len(padded)} start t+{time.perf_counter()-t0:.1f}s",
-                    file=sys.stderr, flush=True,
-                )
-            fits = self._run_bucket(spec, padded, seed)
-            for j, gi in enumerate(chunk_idx):
-                g = genomes[gi]
-                size = model_size_mb(g, self.cfg.num_classes, self.cfg.template)
-                results[gi] = (float(fits["acc"][j]), size,
-                               float(fits["fpr"][j]))
-                self._epoch_history[genome_key(g)] = float(fits["epochs"][j])
-            # durable per launch: a crash in a later launch loses nothing
-            # of this one
-            if self.fitness_cache is not None:
-                self.fitness_cache.put_many(
-                    [(genomes[gi], seed, results[gi]) for gi in chunk_idx]
-                )
-            pop = len(padded)
-            chunk_records.append({
-                "filters": spec.filters,
-                "kernel": spec.kernel,
-                "max_blocks": spec.max_blocks,
-                "pop": pop,
-                "compacted": self._effective_chunk(pop, spec) > 0,
-                "epochs": [int(e) for e in fits["epochs"]],
-                # lanes of each training segment: one entry for a one-shot
-                # launch, falling where compaction dropped stopped lanes
-                "lanes": list(fits["lanes"]),
-            })
-            if log_launches:
-                print(
-                    f"[launch {n+1}/{len(launches)}] done "
-                    f"t+{time.perf_counter()-t0:.1f}s",
-                    file=sys.stderr, flush=True,
-                )
+            with _launch_span(n, len(launches), spec, len(padded), t0,
+                              log_launches):
+                fits = self._run_bucket(spec, padded, seed)
+                for j, gi in enumerate(chunk_idx):
+                    g = genomes[gi]
+                    size = model_size_mb(g, self.cfg.num_classes,
+                                         self.cfg.template)
+                    results[gi] = (float(fits["acc"][j]), size,
+                                   float(fits["fpr"][j]))
+                    self._epoch_history[genome_key(g)] = float(
+                        fits["epochs"][j])
+                # durable per launch: a crash in a later launch loses nothing
+                # of this one
+                if self.fitness_cache is not None:
+                    self.fitness_cache.put_many(
+                        [(genomes[gi], seed, results[gi]) for gi in chunk_idx]
+                    )
+                pop = len(padded)
+                chunk_records.append({
+                    "filters": spec.filters,
+                    "kernel": spec.kernel,
+                    "max_blocks": spec.max_blocks,
+                    "pop": pop,
+                    "compacted": self._effective_chunk(pop, spec) > 0,
+                    "epochs": [int(e) for e in fits["epochs"]],
+                    # lanes of each training segment: one entry for a one-shot
+                    # launch, falling where compaction dropped stopped lanes
+                    "lanes": list(fits["lanes"]),
+                })
         self.timings.append(
             {
                 "n_genomes": len(genomes),
@@ -480,9 +502,9 @@ class PopulationEvaluator:
             out, _ = trainer.run_full(padded, self._train, self._val, seed, cap)
             self._launch_count += 1
             return {
-                "acc": out[acc_key].cpu().numpy(),
-                "fpr": out["fpr"].cpu().numpy(),
-                "epochs": out["epochs_ran"].cpu().numpy(),
+                "acc": host_read(out[acc_key], acc_key),
+                "fpr": host_read(out["fpr"], "fpr"),
+                "epochs": host_read(out["epochs_ran"], "epochs_ran"),
                 "lanes": [pop],
             }
 
@@ -493,9 +515,10 @@ class PopulationEvaluator:
         # shuffle and dropout streams are keyed by global epoch and genome
         # uid, so chunk boundaries and lane positions do not show in the
         # results (bit for bit on the CPU).
-        params, state, flags = init_population(seed, spec, padded,
-                                               self.device)
-        carry = trainer.init_carry(params, state, flags)
+        with span("trainer.init", pop=pop):
+            params, state, flags = init_population(seed, spec, padded,
+                                                   self.device)
+            carry = trainer.init_carry(params, state, flags)
         train_key = train_key_of(seed)
         lane_map = list(range(pop))  # current lane -> original padded index
         acc = np.zeros(pop)
@@ -513,7 +536,7 @@ class PopulationEvaluator:
                 epochs[oi] = out["epochs_ran"][li]
 
         def final(c):
-            return {k: v.cpu().numpy() for k, v in
+            return {k: host_read(v, k) for k, v in
                     trainer.finalize(c, self._val).items()}
 
         while True:
@@ -522,7 +545,7 @@ class PopulationEvaluator:
                                       train_key,
                                       min(carry["epoch"] + chunk, cap))
             self._launch_count += 1
-            stopped = carry["stopped"].cpu().numpy()
+            stopped = host_read(carry["stopped"], "stopped")
             if stopped.all() or carry["epoch"] >= cap:
                 record(final(carry), range(len(lane_map)))
                 break
@@ -572,9 +595,9 @@ class PopulationEvaluator:
                 outs[i] = trainer.finalize(carry, val)
             self._launch_count += 4  # init_pop + carry + chunk + final
         fits = self._gather_replicated({
-            i: {"acc": out[acc_key].cpu().numpy(),
-                "fpr": out["fpr"].cpu().numpy(),
-                "epochs": out["epochs_ran"].cpu().numpy()}
+            i: {"acc": host_read(out[acc_key], acc_key),
+                "fpr": host_read(out["fpr"], "fpr"),
+                "epochs": host_read(out["epochs_ran"], "epochs_ran")}
             for i, out in outs.items()})
         out = {name: np.concatenate([fits[i][name] for i in range(n_pop)])
                for name in ("acc", "fpr", "epochs")}

@@ -55,6 +55,7 @@ from ..models.supernet import (
     tree_map,
 )
 from ..parallel.mesh import SplitData, as_parts
+from ..utils.profiling import span
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -307,10 +308,11 @@ class PopulationTrainer:
         active = ~carry["stopped"]
         for start in range(0, n_train, b):
             idx = perm[start:start + b]
-            params, state, opt = self.batch_step(
-                params, state, opt, carry["flags"], *train.take(idx),
-                fold_in(epoch_key, idx[0]), active,
-            )
+            with span("trainer.step", epoch=carry["epoch"]):
+                params, state, opt = self.batch_step(
+                    params, state, opt, carry["flags"], *train.take(idx),
+                    fold_in(epoch_key, idx[0]), active,
+                )
         return params, state, opt
 
     def batch_step(self, params, state, opt, flags, xb, yb, wb, dkey, active):
@@ -331,13 +333,15 @@ class PopulationTrainer:
         """Advance training until every lane stopped or the epoch reaches
         ``epoch_end``. Keys are derived from the global epoch index."""
         s = self.settings
-        while carry["epoch"] < epoch_end and not bool(carry["stopped"].all()):
+        while carry["epoch"] < epoch_end and not host_read(
+                carry["stopped"].all(), "stopped"):
             epoch = carry["epoch"]
             params, state, opt = self.train_epoch(
                 carry, train, fold_in(train_key, epoch)
             )
-            val_loss, val_acc, _ = self.evaluate(params, state,
-                                                 carry["flags"], val)
+            with span("trainer.validate", final=False):
+                val_loss, val_acc, _ = self.evaluate(params, state,
+                                                     carry["flags"], val)
             active = ~carry["stopped"]
             improved = val_loss < carry["best_val_loss"]
             take_best = active & improved
@@ -377,7 +381,9 @@ class PopulationTrainer:
             params, state = carry["best_params"], carry["best_state"]
         else:
             params, state = carry["params"], carry["state"]
-        val_loss, val_acc, fpr = self.evaluate(params, state, carry["flags"], val)
+        with span("trainer.validate", final=True):
+            val_loss, val_acc, fpr = self.evaluate(params, state,
+                                                   carry["flags"], val)
         return {
             "acc_eval": val_acc,  # model.evaluate(X_val) accuracy
             "acc_last": carry["last_val_acc"],  # history['val_accuracy'][-1]
@@ -401,10 +407,19 @@ class PopulationTrainer:
         Returns (final metrics, trained carry): the search reads the
         metrics, the export also keeps the carry's weights."""
         dev = SplitData.of(train).device
-        params, state, flags = init_population(seed, self.spec, genomes, dev)
-        carry = self.init_carry(params, state, flags)
+        with span("trainer.init", pop=len(genomes)):
+            params, state, flags = init_population(seed, self.spec, genomes,
+                                                   dev)
+            carry = self.init_carry(params, state, flags)
         carry = self.run_chunk(carry, train, val, train_key_of(seed), epoch_end)
         return self.finalize(carry, val), carry
+
+
+def host_read(t: torch.Tensor, what: str) -> np.ndarray:
+    """``t`` on the host: the program blocks on the device here (the
+    ``engine.host_read`` span, one a value read)."""
+    with span("engine.host_read", what=what):
+        return t.cpu().numpy()
 
 
 def train_key_of(seed: int) -> int:

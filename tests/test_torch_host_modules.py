@@ -3,8 +3,9 @@ native HV core (native/hv.cpp, built by native/build.py into a temporary
 directory here) against the port's numpy HV and JAX's ``hypervolume`` on
 seeded 2-D and 3-D fronts (tests/test_metrics.py's 1e-14 relative); the GP
 kernels ``rbf`` and ``scaled_matern_white`` against JAX's
-(tests/test_torch_surrogate.py's f32 tolerance); utils/profiling (the
-cases of tests/test_profiling.py, on torch.profiler); and the ops index:
+(tests/test_torch_surrogate.py's f32 tolerance); utils/profiling's
+``trace`` (tests/test_profiling.py's cases, on torch.profiler; the spans
+are tests/test_torch_spans.py's); and the ops index:
 JAX's names, each the port's function, held against JAX's ops, and an
 import that builds and loads no kernel."""
 
@@ -114,30 +115,16 @@ def test_trace_noop_without_dir(tmp_path, monkeypatch):
 
 def test_trace_writes_profile(tmp_path, monkeypatch):
     """With a trace dir (argument or CMOOP_TRACE_DIR) the stage's Chrome
-    trace is written, holding the stage and the annotated region."""
+    trace is written, holding the stage and a span opened inside it."""
     monkeypatch.setenv("CMOOP_TRACE_DIR", str(tmp_path / "env"))
     for where, kw in ((tmp_path / "arg", dict(trace_dir=str(tmp_path / "arg"))),
                       (tmp_path / "env", {})):
         with tprof.trace("stage", **kw):
-            with tprof.annotate("inner"):
+            with tprof.span("inner"):
                 torch.ones(4).sum()
         with open(where / "stage.json") as f:
             names = {e.get("name") for e in json.load(f)["traceEvents"]}
         assert {"stage", "inner"} <= names, sorted(map(str, names))[:20]
-
-
-def test_device_memory_stats_shape():
-    """One entry per visible CUDA device, keyed as ``str(torch.device)``,
-    with the allocator's counters; none without a GPU (the JAX package
-    lists its CPU device there)."""
-    stats = tprof.device_memory_stats()
-    assert isinstance(stats, dict)
-    if not torch.cuda.is_available():
-        assert stats == {}
-        return
-    assert sorted(stats) == [f"cuda:{i}" for i in
-                             range(torch.cuda.device_count())]
-    assert all("allocated_bytes.all.current" in s for s in stats.values())
 
 
 def test_ops_index_names_the_jax_surface_and_builds_nothing():
