@@ -35,7 +35,14 @@ Phases (any failure exits non-zero; nothing is caught):
              presets' size), 400 (its mixed-radix plan) and 401 (the dense
              route), each with its own bound. Beside them, the time of a
              cuFFT chain the port never calls (torch.stft -> |.|^2 -> mel
-             -> log (-> DCT)), as a yardstick;
+             -> log (-> DCT)), as a yardstick; then the trainer's fused
+             per-lane Adam (csrc/lane_adam.cu) at both cells' trees (the
+             (64, 5, 3-block) bucket, 16 lanes, templates A and B): bit
+             for bit against its plain version; its device ms chained as
+             in training; plain ms, the wrapper's host time a call, and
+             its bound (7 float32 bytes an element over the card's memory
+             rate); its launches on the KWS, KWS-MOBO, BirdCLEF and mesh
+             paths (none there fails the run);
 3. extract — ~2000 class-dependent synthetic 1-s wavs through
              ``extract_features(kind="mfcc")`` into a stratified 70/15/15
              npy split;
@@ -187,7 +194,7 @@ BIRD_CHECK_CLIPS = 512
 MOBO_ITERS = 4  # acquisitions after the preset's 15 initial genomes
 MOBO_EPOCHS = 3
 TOL = dict(atol=3e-2, rtol=1e-3)  # the JAX package's Pallas-vs-XLA tolerance
-KERNELS = ("mfcc_fused", "log_mel_fused")
+KERNELS = ("mfcc_fused", "log_mel_fused", "lane_adam")
 FFT_MIXED_N_FFT = 400  # N = 200 = 25 x 8: the FFT route's mixed-radix plan
 DENSE_N_FFT = 401  # odd: the kernels' dense route
 # (name, bytes/s, f32 FLOP/s outside the tensor cores): published dense peaks
@@ -479,6 +486,116 @@ def phase_kernels(seed: int, device_name: str) -> dict:
         natural_ms=natural["ms"], mixed_route=rec["mixed"],
         dense_route=rec["dense"])
     return records
+
+
+def phase_lane_adam(device_name: str) -> dict:
+    """The fused per-lane Adam at the benchmark cells' trees: the 16
+    genomes' (64, 5, 3-block) bucket, template A (KWS, 10 classes) and B
+    (BirdCLEF, 11), half the lanes active. Kernel == plain bit for bit
+    (``max_abs_err`` over every leaf of the three outputs). ``ms``: its
+    device time a call chained as training chains it (each call's p, m and
+    v are the last one's fresh outputs; ``adam_device_ms``). Plain ms; the
+    wrapper's host us a call (its enqueue, no synchronise); the bound: p,
+    g, m, v read and p, m, v written once, 28 bytes an element, over the
+    card's memory rate. ``launches`` is filled from the main paths
+    (``read_adam_launches``); ``launches_a_call`` is this phase's."""
+    import torch
+
+    from cmoop_audio_processing_torch.engine import lane_adam as la
+    from cmoop_audio_processing_torch.models import supernet as ts
+
+    genome = dict(filters=64, kernel_size=5, use_bn=True, residual_blocks=3,
+                  fc_layers=4, use_dropout=True)
+    lanes = 16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    shapes = {}
+    for tag, template, classes in (("kws", "A", 10), ("bird", "B", 11)):
+        one, _ = ts.init_params(0, ts.BucketSpec(template, 64, 5, classes),
+                                genome)
+
+        def draw(t, scale, square=False):
+            x = torch.randn((lanes,) + tuple(t.shape), generator=gen,
+                            device="cuda") * scale
+            return x * x if square else x
+
+        params = ts.tree_map(lambda t: draw(t, 0.05), one)
+        grads = ts.tree_map(lambda t: draw(t, 1e-2), one)
+        mu = ts.tree_map(lambda t: draw(t, 1e-3), one)
+        nu = ts.tree_map(lambda t: draw(t, 1e-3, square=True), one)
+        active = torch.arange(lanes, device="cuda") % 2 == 0
+        cnt = torch.arange(1, lanes + 1, device="cuda").float()
+        bcs = (1.0 - torch.pow(la.ADAM_B1, cnt),
+               1.0 - torch.pow(la.ADAM_B2, cnt))
+        args = (params, grads, mu, nu, active, *bcs, 1e-3, 1e-7)
+        n = sum(t.numel() for t in ts.tree_leaves(params))
+        before = la.launch_counts["lane_adam"]
+        got = la.lane_adam(*args)
+        launches = la.launch_counts["lane_adam"] - before
+        want = la.lane_adam_reference(*args)
+        err = 0.0
+        for g, w in zip(*(ts.tree_leaves(dict(enumerate(t)))
+                          for t in (got, want))):
+            err = max(err, float((g - w).abs().max()))
+            assert torch.equal(g, w), f"lane_adam ({tag}) differs from plain"
+        del got, want
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            la.lane_adam(*args)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+
+        def chained():
+            p, m, v = params, mu, nu
+            while True:
+                p, m, v = la.lane_adam(p, grads, m, v, active, *bcs, 1e-3,
+                                       1e-7)
+                yield
+
+        ms = adam_device_ms(chained())
+        plain_ms = cuda_time_ms(lambda: la.lane_adam_reference(*args), reps=10)
+        bound_ms, bound_by, peak_name = bound((14 * n, 28 * n), device_name)
+        log(f"[kernels] lane_adam ({tag}: template {template}, {lanes} lanes, "
+            f"{len(ts.tree_leaves(params))} leaves, {n / 1e6:.2f} M "
+            f"parameters): bit for bit (max abs err {err}); {launches} "
+            f"launch; kernel {ms:.4f} ms chained as in training "
+            f"({ms / bound_ms:.3f}x the bound); plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({28 * n / 1e9:.3f} GB; "
+            f"{peak_name} peaks); wrapper host {host_us:.1f} us a call")
+        shapes[tag] = {"parameters": n, "launches_a_call": launches,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "host_us": host_us}
+        del params, grads, mu, nu, args
+    kws = shapes.pop("kws")
+    return {"name": "lane_adam", "route": "cuda",
+            "source": "cmoop_audio_processing_torch/csrc/lane_adam.cu",
+            "replaces": None,  # the JAX package's Adam is plain XLA (optax)
+            "launches": None, "library_ms": None, **kws,
+            "bird_shape": shapes["bird"]}
+
+
+def adam_device_ms(calls, reps: int = 20) -> float:
+    """Median device time of one step of the generator ``calls`` (each
+    ``next`` enqueues one ``lane_adam``), from CUDA events between
+    consecutive calls. A sleep kernel enqueued first keeps the card busy
+    while the host enqueues them all, so the wrapper's host time does not
+    show in the gaps."""
+    import statistics
+
+    import torch
+
+    for _ in range(3):  # warm-up: the allocator holds both sides' buffers
+        next(calls)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock
+    events[0].record()
+    for k in range(reps):
+        next(calls)
+        events[k + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(events[k].elapsed_time(events[k + 1])
+                             for k in range(reps))
 
 
 def phase_extract(seed: int, device: str, n_wavs: int, data_dir: str):
@@ -1792,6 +1909,21 @@ def phase_oracle(name: str, smi: str) -> None:
            f"; OVER the {ORACLE_BUDGET_S}-s budget"))
 
 
+def read_adam_launches(records: dict, path: str) -> None:
+    """The fused Adam's launches in the path's run (which trains on the
+    card, so it must have launched): ``launches`` keeps the first path's
+    count, ``path_launches`` each path's."""
+    from cmoop_audio_processing_torch.engine import lane_adam as la
+
+    count = la.launch_counts["lane_adam"]
+    rec = records["lane_adam"]
+    if rec["launches"] is None:
+        rec["launches"] = count
+    rec.setdefault("path_launches", {})[path] = count
+    if count == 0:
+        raise AssertionError(f"lane_adam did not launch on the {path} path")
+
+
 def read_launches(records: dict, names, path: str) -> None:
     """Each kernel's launches in the path's run, which must all have taken
     the FFT route. ``launches`` keeps the first path's count,
@@ -1824,6 +1956,7 @@ def main(argv=None) -> int:
         sys.exit("chip_smoke: cmoop_audio_processing_torch is not in this checkout")
     from cmoop_audio_processing_torch.core.config import TrainConfig
     from cmoop_audio_processing_torch.core.device import resolve_device
+    from cmoop_audio_processing_torch.engine import lane_adam
     from cmoop_audio_processing_torch.frontend import cuda_kernels
 
     resolve_device("cuda")  # deterministic mode before the first cuBLAS call
@@ -1837,27 +1970,33 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     phase_build()
     records = phase_kernels(args.seed, name)
+    records["lane_adam"] = phase_lane_adam(name)
 
     data_dir = os.path.join(WORK, "kws_npy")
     cuda_kernels.reset_launch_counts()
+    lane_adam.launch_counts["lane_adam"] = 0
     val_wavs = phase_extract(args.seed, "cuda", N_WAVS, data_dir)
     phase_train("train", "cuda", data_dir, SMOKE_GENOMES,
                 TrainConfig(epochs=4, compute_dtype="bfloat16"), min_acc=0.5)
     phase_search("search", "nsga_penalty", "cuda", data_dir,
                  os.path.join(WORK, "results"), epochs=3, pop=8, gens=2)
     read_launches(records, ["mfcc_fused"], "KWS")
+    read_adam_launches(records, "KWS")
 
     results = os.path.join(WORK, "results")
     cuda_kernels.reset_launch_counts()
+    lane_adam.launch_counts["lane_adam"] = 0
     mobo_front = phase_mobo_search("cuda", data_dir, results)
     phase_deploy("cuda", data_dir, val_wavs, mobo_front,
                  os.path.join(WORK, "deployed"))
     phase_compare({"NSGA": os.path.join(results, "nsga_penalty", "final_pareto.csv"),
                    "MOBO": mobo_front}, os.path.join(WORK, "report.json"))
     read_launches(records, ["mfcc_fused"], "KWS-MOBO")
+    read_adam_launches(records, "KWS-MOBO")
 
     bird_dir = os.path.join(WORK, "bird_npy")
     cuda_kernels.reset_launch_counts()
+    lane_adam.launch_counts["lane_adam"] = 0
     phase_bird_extract(args.seed, "cuda", os.path.join(WORK, "bird_wavs"),
                        bird_dir)
     phase_train("bird-train", "cuda", bird_dir, BIRD_GENOMES,
@@ -1867,8 +2006,11 @@ def main(argv=None) -> int:
                  os.path.join(WORK, "results"), epochs=BIRD_SEARCH_EPOCHS,
                  pop=6, gens=2)
     read_launches(records, ["log_mel_fused"], "BirdCLEF")
+    read_adam_launches(records, "BirdCLEF")
     phase_planner("cuda", data_dir, bird_dir, smi)
+    lane_adam.launch_counts["lane_adam"] = 0
     phase_mesh("cuda", data_dir, smi)
+    read_adam_launches(records, "mesh")
     phase_split("cuda", data_dir, bird_dir, smi)
     phase_exhaustive(smi)
     phase_all8(name, smi)

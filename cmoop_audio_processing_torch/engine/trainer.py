@@ -17,7 +17,8 @@ Shape of the loop (cmoop_audio_processing_tpu/engine/trainer.py):
   the grouped population network (models/grouped.py) and one backward
   serve every lane, since the summed per-lane losses have disjoint
   parameters;
-* Adam runs per lane with a per-lane step count. Early stopping is
+* Adam runs per lane with a per-lane step count, on the card as one
+  fused kernel over every leaf (engine/lane_adam.py). Early stopping is
   per-lane masking: a stopped lane keeps its parameters, BN state and Adam
   moments frozen (a stock ``torch.optim.Adam`` would still advance them);
 * ``restore_best_weights`` keeps a best-params snapshot per lane (selected
@@ -53,12 +54,13 @@ from ..models.supernet import (
     init_population,
     tree_leaves,
     tree_map,
+    tree_unflatten,
 )
 from ..parallel.mesh import SplitData, as_parts
 from ..utils.profiling import span
+from . import lane_adam
+from .lane_adam import ADAM_B1, ADAM_B2
 
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
 MAX_ACTIVATION_ELEMENTS = 2**31 - 1
 
 
@@ -203,33 +205,24 @@ class PopulationTrainer:
 
     def adam_step(self, params, grads, opt, active):
         """One optax-style Adam update per lane; lanes not ``active`` keep
-        params and moments. Returns (new params, new opt state)."""
+        params and moments. Returns (new params, new opt state), fresh
+        tensors: the inputs are left as they are (engine/lane_adam.py)."""
         s = self.settings
-        count = opt["count"] + active.to(opt["count"].dtype)
-        # optax bias correction: moment / (1 - decay**count), in f32
-        cnt = torch.clamp(count, min=1).float()
-        bc1 = 1.0 - torch.pow(ADAM_B1, cnt)
-        bc2 = 1.0 - torch.pow(ADAM_B2, cnt)
-
-        def lanes(v, x):
-            return v.view((-1,) + (1,) * (x.dim() - 1))
-
-        def upd(p, g, m, v):
-            m2 = ADAM_B1 * m + (1.0 - ADAM_B1) * g
-            v2 = ADAM_B2 * v + (1.0 - ADAM_B2) * g * g
-            step = (m2 / lanes(bc1, m2)) / (
-                torch.sqrt(v2 / lanes(bc2, v2)) + s.adam_eps
-            )
-            keep = lanes(active, p)
-            return (torch.where(keep, p - s.learning_rate * step, p),
-                    torch.where(keep, m2, m), torch.where(keep, v2, v))
-
-        new = tree_map(upd, params, grads, opt["mu"], opt["nu"])  # 3-tuples
-
-        def pick(i):
-            return tree_map(lambda t: t[i], new)
-
-        return pick(0), {"mu": pick(1), "nu": pick(2), "count": count}
+        route = lane_adam.route(active.device)
+        with span("trainer.adam", route=route):
+            if route == "kernel":
+                # the kernel takes contiguous leaves; autograd leaves the
+                # 1x1 skips' weight gradients (batched matmuls) transposed
+                grads = tree_map(torch.Tensor.contiguous, grads)
+            count = opt["count"] + active.to(opt["count"].dtype)
+            # optax bias correction: moment / (1 - decay**count), in f32
+            cnt = torch.clamp(count, min=1).float()
+            bc1 = 1.0 - torch.pow(ADAM_B1, cnt)
+            bc2 = 1.0 - torch.pow(ADAM_B2, cnt)
+            p, m, v = lane_adam.lane_adam(params, grads, opt["mu"], opt["nu"],
+                                          active, bc1, bc2, s.learning_rate,
+                                          s.adam_eps)
+            return p, {"mu": m, "nu": v, "count": count}
 
     def init_carry(self, params, state, flags):
         p = flags["n_blocks"].shape[0]
@@ -321,7 +314,7 @@ class PopulationTrainer:
         leaves_in = tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss, new_state = self.pop_loss(leaves_in, state, flags, xb, yb, wb,
                                         dkey)
-        grads = _unflatten(
+        grads = tree_unflatten(
             params, torch.autograd.grad(loss, tree_leaves(leaves_in))
         )
         with torch.no_grad():
@@ -427,8 +420,3 @@ def train_key_of(seed: int) -> int:
     lanes; it depends on the seed alone, keeping re-evaluations
     idempotent)."""
     return fold_in(seed_key(seed), 1)
-
-
-def _unflatten(like: Dict, leaves) -> Dict:
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)

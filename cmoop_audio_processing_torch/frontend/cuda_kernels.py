@@ -218,8 +218,9 @@ def ptxas_summary(report: str):
     return rows
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# each library's C entry points and their argument types (all return int)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# each library's C entry points and their argument types (all return int);
+# lane_adam is the trainer's (engine/lane_adam.py)
 _ENTRY_POINTS = {
     "mfcc_fused": {
         "mfcc_fused_launch": [_P] * 5 + [_I] * 9 + [_P],
@@ -228,6 +229,9 @@ _ENTRY_POINTS = {
     "log_mel_fused": {
         "log_mel_fused_launch": [_P] * 4 + [_I] * 9 + [_P],
         "log_mel_fft_launch": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
+    },
+    "lane_adam": {
+        "lane_adam_launch": [_P, _I] + [_P] * 6 + [_L] + [_F] * 6 + [_P],
     },
 }
 

@@ -233,6 +233,13 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure over ``leaves`` in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def init_population(seed: int, spec: BucketSpec, genomes, device="cpu"):
     """Stacked params/state (leading pop axis on every leaf) + flags for a
     (padded) population, on ``device``."""

@@ -9,10 +9,14 @@ so the op inventory is discoverable at a glance:
   never by this import);
 * population forward passes: the grouped population network and one model
   (models/);
-* training-step machinery: macro-FPR, dataset padding (engine/);
+* training-step machinery: macro-FPR, dataset padding (engine/), and the
+  per-lane fused Adam update (engine/lane_adam.py), the port's own
+  kernel: the JAX package's Adam is plain XLA, so it has no JAX name and
+  comes after JAX's names;
 * GP kernels: Matern/RBF/White Gram matrices (surrogate/).
 """
 
+from ..engine.lane_adam import lane_adam
 from ..engine.trainer import macro_fpr, pad_dataset
 from ..frontend.cuda_kernels import log_mel_fused, mfcc_fused
 from ..frontend.features import log_mel, mfcc, stft_power
@@ -34,4 +38,5 @@ __all__ = [
     "rbf",
     "scaled_matern_white",
     "sqdist",
+    "lane_adam",
 ]

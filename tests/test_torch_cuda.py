@@ -276,3 +276,204 @@ def test_sa_nsga2_gp_fits_repeat_bit_for_bit_on_the_card(cuda):
     runs = [run_sa_nsga2(cfg, FakeEvaluator(), device="cuda")[0] for _ in range(2)]
     assert [(p["hparams"], p["objs"]) for p in runs[0]] == \
         [(p["hparams"], p["objs"]) for p in runs[1]]
+
+
+# -- the per-lane fused Adam (engine/lane_adam.py, csrc/lane_adam.cu) --------
+
+# the cells' bucket: 64 filters, 5x5 kernels, 3 blocks; KWS template A (10
+# classes) and BirdCLEF template B (11 classes)
+ADAM_BUCKETS = {"A": 10, "B": 11}
+_ADAM_TREES = {}
+
+
+def _adam_tree(template, lanes):
+    """The bucket's stacked parameter tree from ``init_population`` at 16
+    lanes (the 16 genomes of the cells), or the first ``lanes`` odd-indexed
+    of them as the evaluator's compaction leaves them (``gather_lanes``),
+    on the card; built once a template."""
+    from cmoop_audio_processing_torch.engine.trainer import gather_lanes
+    from cmoop_audio_processing_torch.models import supernet as ts
+
+    if template not in _ADAM_TREES:
+        genomes = [dict(filters=64, kernel_size=5, use_bn=bn,
+                        residual_blocks=3, fc_layers=fc, use_dropout=dr)
+                   for bn in (True, False) for fc in (1, 2, 3, 4)
+                   for dr in (True, False)]
+        spec = ts.BucketSpec(template, 64, 5, ADAM_BUCKETS[template])
+        params, _, _ = ts.init_population(7, spec, genomes, "cuda")
+        _ADAM_TREES[template] = params
+    params = _ADAM_TREES[template]
+    if lanes == 16:
+        return params
+    return gather_lanes(params, list(range(1, 2 * lanes, 2))[:lanes])
+
+
+def _adam_inputs(template, lanes, n_active, seed=0):
+    """(params, grads, mu, nu, active, bc1, bc2): moments as after some
+    steps, per-lane step counts 1..lanes, ``n_active`` lanes active (every
+    third first), and a NaN in each leaf's gradient of the first inactive
+    lane."""
+    from cmoop_audio_processing_torch.engine import lane_adam as la
+    from cmoop_audio_processing_torch.models.supernet import tree_map
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(t, scale, positive=False):
+        x = torch.randn(t.shape, generator=gen, device=t.device) * scale
+        return x * x if positive else x
+
+    params = _adam_tree(template, lanes)
+    order = list(range(0, lanes, 3)) + [i for i in range(lanes) if i % 3]
+    active = torch.zeros(lanes, dtype=torch.bool, device="cuda")
+    active[order[:n_active]] = True
+    off = [i for i in range(lanes) if not bool(active[i])]
+
+    def grad(t):
+        g = draw(t, 1e-2)
+        if off:
+            g[off[0]] = float("nan")
+        return g
+
+    grads = tree_map(grad, params)
+    mu = tree_map(lambda t: draw(t, 1e-3), params)
+    nu = tree_map(lambda t: draw(t, 1e-3, positive=True), params)
+    cnt = torch.arange(1, lanes + 1, device="cuda").float()
+    return (params, grads, mu, nu, active, 1.0 - torch.pow(la.ADAM_B1, cnt),
+            1.0 - torch.pow(la.ADAM_B2, cnt))
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 7])
+@pytest.mark.parametrize("lanes", [16, 5])
+@pytest.mark.parametrize("template", ["A", "B"])
+def test_lane_adam_kernel_equals_its_plain_version(cuda, template, lanes,
+                                                   n_active):
+    """The kernel against ``lane_adam_reference`` on the card, bit for bit,
+    on a template's whole tree: no lane active, one or seven; a stopped
+    lane keeps p, m and v bit for bit although its gradient is NaN; the
+    inputs are unchanged; a second launch gives the same bits; one launch a
+    call (at most 64 leaves)."""
+    from cmoop_audio_processing_torch.engine import lane_adam as la
+    from cmoop_audio_processing_torch.models.supernet import tree_leaves
+
+    inputs = _adam_inputs(template, lanes, min(n_active, lanes))
+    params, grads, mu, nu, active = inputs[:5]
+    before = [[t.clone() for t in tree_leaves(tree)]
+              for tree in (params, grads, mu, nu)]
+    launches = la.launch_counts["lane_adam"]
+    got = la.lane_adam(*inputs, 1e-3, 1e-7)
+    again = la.lane_adam(*inputs, 1e-3, 1e-7)
+    torch.cuda.synchronize()
+    assert la.launch_counts["lane_adam"] == launches + 2
+    want = la.lane_adam_reference(*inputs, 1e-3, 1e-7)
+    for old, tree in zip(before, (params, grads, mu, nu)):  # NaN included
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(old, tree_leaves(tree)))
+    on = active.view(-1, 1)
+    for name, got_t, again_t, want_t, old_t in zip(
+            ("p", "m", "v"), got, again, want, (params, mu, nu)):
+        for g, a, w, o in zip(tree_leaves(got_t), tree_leaves(again_t),
+                              tree_leaves(want_t), tree_leaves(old_t)):
+            assert torch.equal(g, w), (name, tuple(g.shape))
+            assert torch.equal(g, a), (name, tuple(g.shape))
+            # stopped lanes: the input itself
+            flat_o = o.flatten(1)
+            assert torch.equal(torch.where(on, flat_o, g.flatten(1)), flat_o)
+            assert bool(torch.isfinite(g).all()), (name, tuple(g.shape))
+
+
+def test_lane_adam_is_one_kernel_a_call(cuda):
+    """Under the port's deterministic algorithms (the ``cuda`` fixture) a
+    call runs one kernel on the card, the fused Adam: its output buffers
+    take no NaN fill."""
+    from cmoop_audio_processing_torch.engine import lane_adam as la
+
+    assert torch.are_deterministic_algorithms_enabled()
+    inputs = _adam_inputs("A", 16, 7)
+    la.lane_adam(*inputs, 1e-3, 1e-7)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        la.lane_adam(*inputs, 1e-3, 1e-7)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "lane_adam_kernel" in kernels[0], kernels
+
+
+def test_lane_adam_refuses_what_the_kernel_does_not_take(cuda):
+    """float64, a non-contiguous leaf, a leaf on another device and a
+    leaf of another shape (another lane count) raise before anything
+    launches."""
+    from cmoop_audio_processing_torch.engine import lane_adam as la
+    from cmoop_audio_processing_torch.models.supernet import tree_map
+
+    params, grads, mu, nu, active, bc1, bc2 = _adam_inputs("B", 5, 1)
+    w = grads["block0"]["conv1"]["w"]  # (5, 128, 64, 5, 5)
+    bad = {
+        "float32": w.double(),
+        "contiguous": w.transpose(-1, -2).contiguous().transpose(-1, -2),
+        "one device": w.cpu(),
+        "shape": torch.cat([w, w[:1]]),
+    }
+    launches = la.launch_counts["lane_adam"]
+    for match, leaf in bad.items():
+        broken = tree_map(lambda t: t, grads)
+        broken["block0"]["conv1"]["w"] = leaf
+        with pytest.raises(ValueError, match=match):
+            la.lane_adam(params, broken, mu, nu, active, bc1, bc2, 1e-3, 1e-7)
+    assert la.launch_counts["lane_adam"] == launches
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the launch on a card that is "
+                    "not the current one")
+    return cuda
+
+
+def test_lane_adam_launches_on_its_leaves_card_while_another_is_current(
+        two_cards):
+    """Leaves on cuda:1 while cuda:0 is current (the mesh's pop shards):
+    the kernel launches there, equal to the plain version bit for bit, and
+    cuda:0 is current again afterwards."""
+    from cmoop_audio_processing_torch.engine import lane_adam as la
+    from cmoop_audio_processing_torch.models.supernet import (tree_leaves,
+                                                              tree_map)
+
+    inputs = [tree_map(lambda t: t.to("cuda:1"), x)
+              for x in _adam_inputs("B", 5, 3)]
+    launches = la.launch_counts["lane_adam"]
+    with torch.cuda.device(0):
+        got = la.lane_adam(*inputs, 1e-3, 1e-7)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize("cuda:1")
+    assert la.launch_counts["lane_adam"] == launches + 1
+    want = la.lane_adam_reference(*inputs, 1e-3, 1e-7)
+    for g, w in zip(*(tree_leaves(dict(enumerate(t))) for t in (got, want))):
+        assert g.device == torch.device("cuda:1")
+        assert torch.equal(g, w), tuple(g.shape)
+
+
+def test_mesh_over_the_cards_equals_the_mesh_on_one_card(two_cards):
+    """The default mesh, one pop shard a visible card, in one process,
+    trains each shard on its own card (the fused Adam included) and gives
+    the fitness of the same mesh laid on cuda:0 alone, bit for bit."""
+    from cmoop_audio_processing_torch.core.config import DataConfig, TrainConfig
+    from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
+    from cmoop_audio_processing_torch.engine.evaluator import PopulationEvaluator
+    from cmoop_audio_processing_torch.parallel.mesh import population_mesh
+
+    cards = torch.cuda.device_count()
+    data = prepare_dataset(DataConfig(synthetic_train=256, synthetic_eval=128,
+                                      time_steps=45, features=13))
+    cfg = TrainConfig(epochs=2, compute_dtype="bfloat16")
+    genomes = [dict(filters=32, kernel_size=5, use_bn=i % 2 == 0,
+                    residual_blocks=1 + i % 3, fc_layers=1 + i % 4,
+                    use_dropout=i % 3 == 0) for i in range(2 * cards)]
+    runs = [PopulationEvaluator(data, cfg, mesh=mesh).evaluate(genomes, seed=2)
+            for mesh in (population_mesh(),
+                         population_mesh(devices=["cuda:0"] * cards))]
+    assert runs[0] == runs[1]
+    assert all(np.isfinite(v) for fit in runs[0] for v in fit)

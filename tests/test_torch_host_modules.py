@@ -6,8 +6,9 @@ kernels ``rbf`` and ``scaled_matern_white`` against JAX's
 (tests/test_torch_surrogate.py's f32 tolerance); utils/profiling's
 ``trace`` (tests/test_profiling.py's cases, on torch.profiler; the spans
 are tests/test_torch_spans.py's); and the ops index:
-JAX's names, each the port's function, held against JAX's ops, and an
-import that builds and loads no kernel."""
+JAX's names, each the port's function, held against JAX's ops, then the
+port's own kernel (the fused Adam, which no JAX op names), and an import
+that builds and loads no kernel."""
 
 import json
 import os
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from cmoop_audio_processing_torch import ops as tops
+from cmoop_audio_processing_torch.engine import lane_adam
 from cmoop_audio_processing_torch.frontend import cuda_kernels
 from cmoop_audio_processing_torch.metrics import hypervolume as TH
 from cmoop_audio_processing_torch.native import build as tbuild
@@ -128,18 +130,20 @@ def test_trace_writes_profile(tmp_path, monkeypatch):
 
 
 def test_ops_index_names_the_jax_surface_and_builds_nothing():
-    """The index exports JAX's names, each the port's own function, and
-    importing it compiled and loaded no kernel."""
-    assert tops.__all__ == jops.__all__
+    """The index exports JAX's names, each the port's own function, then
+    the port's own kernels, and importing it compiled and loaded no
+    kernel."""
+    assert tops.__all__ == jops.__all__ + ["lane_adam"]
     homes = {"log_mel_fused": cuda_kernels, "mfcc_fused": cuda_kernels,
-             "rbf": TK, "scaled_matern_white": TK, "matern": TK, "sqdist": TK}
+             "rbf": TK, "scaled_matern_white": TK, "matern": TK, "sqdist": TK,
+             "lane_adam": lane_adam}
     for name in tops.__all__:
         fn = getattr(tops, name)
         assert callable(fn) and fn.__module__.startswith(
             "cmoop_audio_processing_torch."), name
         if name in homes:
             assert fn is getattr(homes[name], name)
-    assert cuda_kernels._library.cache_info().currsize == 0
+    assert cuda_kernels._library.cache_info().currsize == 0  # lane_adam's too
 
 
 @pytest.mark.parametrize("name", ["sqdist", "matern", "rbf",

@@ -1,9 +1,10 @@
 """The port's spans (utils/profiling.py) and where the program opens them:
 off, ``span`` is one shared no-op and records nothing; on, a tiny
 ``PopulationEvaluator.evaluate`` gives the same fitness bit for bit and
-the span tree its code predicts, on the one-shot and on the compacted
-path; the stamps fall on the clock of the profiler's events; and
-``CMOOP_LOG_LAUNCHES=1`` prints the launch lines it always printed."""
+the span tree its code predicts (an optimizer update inside each step),
+on the one-shot and on the compacted path; the stamps fall on the clock
+of the profiler's events; and ``CMOOP_LOG_LAUNCHES=1`` prints the launch
+lines it always printed."""
 
 import re
 import time
@@ -142,10 +143,16 @@ def test_evaluate_spans(data, chunk):
     assert len(finals) == 1 + sum(b < a for a, b in zip(lanes, lanes[1:]))
     assert len(by["engine.host_read"]) == _host_reads(launch, chunk)
     assert set(by) == {"evaluator.call", "evaluator.launch", "trainer.init",
-                       "trainer.step", "trainer.validate", "engine.host_read"}
+                       "trainer.step", "trainer.adam", "trainer.validate",
+                       "engine.host_read"}
+    # one optimizer update inside each step, on the CPU's plain route
+    step_ids = {r.id for r in by["trainer.step"]}
+    assert len(by["trainer.adam"]) == steps
+    for r in by["trainer.adam"]:
+        assert r.parent in step_ids and r.attrs == {"route": "plain"}
     for r in recs:
         assert r.call == call.id and r.end_ns >= r.start_ns
-        if r is not call and r is not ln:
+        if r is not call and r is not ln and r.name != "trainer.adam":
             assert r.parent == ln.id, r
             assert ln.start_ns <= r.start_ns and r.end_ns <= ln.end_ns
 
