@@ -1,11 +1,13 @@
 """One run of one cell: set-up, the measured window, the check.
 
 Everything that belongs to a configuration, a traffic mix or a metric is
-found by name: ``configs/<config>.json``, ``traffic/<mix>.json``,
+found by name: ``configs/<config>.json``, the architecture module its
+``"reference"`` key names (``reference/<module>.py``: the frozen init and
+counts and the plain forward pass), ``traffic/<mix>.json``,
 ``limits/<cell>.json``, ``end_to_end/<metric>.py`` and
 ``metrics/<metric>.py`` (each reader a ``read(ctx)`` that returns a
-number, or None when it finds nothing to read), so a cell, a mix or a
-metric is added with files and entries alone.
+number, or None when it finds nothing to read), so a cell, a mix, a
+metric or an architecture is added with files and entries alone.
 
 The window drives ``PopulationEvaluator.evaluate(genomes, seed)``, the
 entry every search driver calls: call i with eval seed ``traffic.
@@ -30,7 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from . import check, data, devtrace, traffic
+from . import check, data, devtrace, reference, traffic
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -49,7 +51,9 @@ def bench(path: Optional[str] = None) -> Dict:
 
 def resolve(workload: str, bench_path: Optional[str] = None) -> Dict:
     """The cell of ``workload`` with its configuration, mix, limits and
-    metrics, from BENCHMARK.json and the files named there."""
+    metrics, from BENCHMARK.json and the files named there. Loads the
+    configuration's architecture module, so that a missing one fails
+    here, before any set-up."""
     spec = bench(bench_path)
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
@@ -60,11 +64,13 @@ def resolve(workload: str, bench_path: Optional[str] = None) -> Dict:
     def applies(m):
         return "workloads" not in m or workload in m["workloads"]
 
+    config = _load_json(os.path.relpath(os.path.join(ROOT, conf["file"]),
+                                        HERE))
+    reference.load(config.get("reference"))
     return {
         "name": workload,
         "chips": w["chips"],
-        "config": _load_json(os.path.relpath(os.path.join(ROOT, conf["file"]),
-                                             HERE)),
+        "config": config,
         "traffic": _load_json("traffic", f"{w['traffic']}.json"),
         "limits": _load_json("limits", f"{workload}.json"),
         "end_to_end": [m for m in spec["end_to_end"] if applies(m)],
@@ -244,8 +250,11 @@ def run(cell: Dict, seed: int, seconds: float, traced: bool, device="cuda",
         device_rec["window_s"] = summary["window_s"]
         result["breakdown"] = {"device_ops": summary["top_device_ops"],
                                "idle_gaps": summary["idle_by_host_op"]}
+        by_name = summary["ops_by_name"]
         log(f"[bench] trace: {summary['kernels']} kernels, "
-            f"{summary['device_ops']} device ops, busy "
+            f"{summary['device_ops']} device ops ("
+            f"{sum(v['launches'] for v in by_name.values())} launches of "
+            f"{len(by_name)} names), busy "
             f"{summary['busy_s']:.4f} s of {summary['window_s']:.4f} s, "
             f"read in {summary['read_s']:.1f} s")
     for c in calls:

@@ -15,11 +15,15 @@ PopulationTrainer``, and changes nothing it computes:
 * ``finalize``: the trained parameters and BN state that each launch's
   final validation reads, and its outputs, kept for the last call only.
 
-After the window the reference follows the same steps from its own init
-(frozen copies of the genome-keyed init, shuffle and dropout stream), in
-float32, one genome at a time, and validates each genome of the last call
-on the program's trained state. ``numbers`` turns the two sides into the
-numbers that ``limits/<cell>.json`` bounds.
+After the window the reference follows the same steps from its own init,
+in float32, one genome at a time, and validates each genome of the last
+call on the program's trained state. Everything it knows of the
+architecture (the frozen genome-keyed init, the plain forward pass) comes
+from the module that the configuration's ``"reference"`` key names
+(``benchmark/reference/<module>.py``); the shuffle and the dropout stream
+from ``frozen``; loss, Adam, the step loop and validation from
+``reference/training``. ``numbers`` turns the two sides into the numbers
+that ``limits/<cell>.json`` bounds.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import frozen
-from .reference import model as ref
+from . import frozen, reference
+from .reference import training
 
 STEPS = 3
 ADAM_B1 = 0.9
@@ -185,7 +189,7 @@ def batches(train, eval_seed: int, batch_size: int, steps: int, device):
 
 def side_record(records: List[Dict], init_params: Dict, init_state: Dict,
                 bn_used: bool) -> Dict:
-    """A reference run's steps (``reference.model.train_steps``) in the
+    """A reference run's steps (``reference.training.train_steps``) in the
     form the program's side takes: per-leaf norms keyed by path."""
     def norms(tree, base=None):
         b = dict(_paths(base)) if base is not None else {}
@@ -211,8 +215,8 @@ def program_lane(launch: Dict, p: int, y_w) -> Dict:
         if lgp.shape[0] != yb.shape[0]:  # not the batch the step was given
             losses.append(float("inf"))
             continue
-        losses.append(float(ref.weighted_loss(lgp, yb.cpu(),
-                                              wb.cpu().double())))
+        losses.append(float(training.weighted_loss(lgp, yb.cpu(),
+                                                   wb.cpu().double())))
     return {
         "logits": [lg[p] for lg in launch["logits"]],
         "loss": losses,
@@ -290,11 +294,13 @@ def worst(rows: List[Dict[str, float]]) -> Dict[str, float]:
 
 
 class Reference:
-    """The reference's view of one cell's data, genomes and settings."""
+    """The reference's view of one cell's data, genomes and settings, and
+    of its architecture through the configuration's module."""
 
     def __init__(self, config: Dict, data: Dict[str, np.ndarray], device):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.arch = reference.load(config["reference"])
         self.train_cfg = config["train"]
         self.template = self.train_cfg["template"]
         self.num_classes = self.train_cfg["num_classes"]
@@ -306,11 +312,11 @@ class Reference:
         self._steps: Dict = {}
 
     def init(self, genome: Dict, eval_seed: int):
-        p, s = frozen.init_params(
+        p, s = self.arch.init_params(
             eval_seed, self.template, int(genome["filters"]),
             int(genome["kernel_size"]), self.num_classes,
             int(genome["residual_blocks"]), genome)
-        p, s = ref.reference_params(p, s, genome, self.template)
+        p, s = self.arch.reference_params(p, s, genome, self.template)
         return _to(p, self.device), _to(s, self.device)
 
     def steps(self, genome: Dict, eval_seed: int, precision="f32",
@@ -327,8 +333,8 @@ class Reference:
         p0, s0 = self.init(genome, eval_seed)
         bt = batches(self.train, eval_seed, self.train_cfg["batch_size"],
                      STEPS, self.device)
-        recs = ref.train_steps(
-            p0, s0, genome, self.template, bt,
+        recs = training.train_steps(
+            self.arch.forward, p0, s0, genome, self.template, bt,
             lr=self.train_cfg["learning_rate"],
             eps=self.train_cfg["adam_eps"],
             dropout_rate=self.train_cfg["dropout_rate"],
@@ -338,13 +344,15 @@ class Reference:
 
     def size(self, genome: Dict) -> float:
         p, s = self.init(genome, 0)
-        return ref.size_mb(p, s)
+        return training.size_mb(p, s)
 
     def validate(self, genome: Dict, params: Dict, state: Dict,
                  precision="f32"):
-        p, s = ref.reference_params(params, state, genome, self.template)
-        return ref.validate(p, s, genome, self.template, self.x_val,
-                            self.y_val, self.num_classes, precision=precision)
+        p, s = self.arch.reference_params(params, state, genome,
+                                          self.template)
+        return training.validate(self.arch.forward, p, s, genome,
+                                 self.template, self.x_val, self.y_val,
+                                 self.num_classes, precision=precision)
 
 
 def _to(tree, device):

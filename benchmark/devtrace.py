@@ -1,6 +1,7 @@
 """One call under ``torch.profiler``, read into what the per-layer readers
 take: device busy time, kernel count, the device operations that took most
-time, and the device's idle time by the host operation it fell in.
+time, every device operation's total time and launch count by name, and
+the device's idle time by the host operation it fell in.
 
 The profiler keeps its events in memory; they are read straight from its
 results (``kineto_results.events()``), not through ``key_averages``,
@@ -70,8 +71,10 @@ def summarize(events) -> Dict:
     kernels = sum(1 for _, _, n in dev
                   if not n.startswith(("Memcpy", "Memset")))
     by_name: Dict[str, float] = defaultdict(float)
+    launches: Dict[str, int] = defaultdict(int)
     for s, e, n in dev:
         by_name[n] += (e - s) / 1e9
+        launches[n] += 1
     dev.sort()
     busy = 0
     gaps = []
@@ -103,6 +106,10 @@ def summarize(events) -> Dict:
         "window_s": (hi - lo) / 1e9,
         "top_device_ops": sorted(([n, t] for n, t in by_name.items()),
                                  key=lambda kv: -kv[1])[:TOP],
+        # every device operation of the call, whatever its rank: a
+        # kernel's roofline reader finds its time and launches here
+        "ops_by_name": {n: {"seconds": t, "launches": launches[n]}
+                        for n, t in by_name.items()},
         "idle_by_host_op": _idle_by_host_op(gaps, cpu),
     }
 

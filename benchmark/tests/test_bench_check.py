@@ -1,9 +1,14 @@
 """The check against the port's CPU path at a toy size: the reference
 agrees with the program run in float32; every fault the cells can have
-turns ``correct`` false, and so does the lower-precision control."""
+turns ``correct`` false, and so does the lower-precision control; an
+architecture module is added with files alone, and the check reads the one
+the configuration names."""
 
 import copy
 import dataclasses
+import json
+import os
+import uuid
 
 import pytest
 
@@ -12,19 +17,19 @@ from cmoop_audio_processing_torch.engine import evaluator as pevaluator
 from cmoop_audio_processing_torch.engine import trainer as ptrainer
 
 CELLS = [w["name"] for w in cell.bench()["workloads"]]
-TOY_DATA = {"A": {"time_steps": 16, "features": 8, "n_train": 150,
-                  "n_val": 70},
-            "B": {"time_steps": 20, "features": 8, "n_train": 150,
-                  "n_val": 70}}
+TOY_DATA = {"kws_nsga_penalty": {"time_steps": 16, "features": 8,
+                                 "n_train": 150, "n_val": 70},
+            "bird_sa_nsga_penalty": {"time_steps": 20, "features": 8,
+                                     "n_train": 150, "n_val": 70}}
 SEED = 2 ** 31 + 101
 
 
-def toy_cell(name):
+def toy_cell(name, bench_path=None, toy_data=None):
     """The cell at a toy size: its configuration and mix with a small
     map, few rows and 16-filter genomes of the same genes."""
-    c = cell.resolve(name)
+    c = cell.resolve(name, bench_path)
     c = copy.deepcopy(c)
-    c["config"]["data"] = TOY_DATA[c["config"]["train"]["template"]]
+    c["config"]["data"] = toy_data or TOY_DATA[c["config"]["name"]]
     grid = dict(c["traffic"]["genomes"]["grid"], filters=[16],
                 kernel_size=[3])
     grid["fc_layers"] = grid["fc_layers"][::3]
@@ -120,3 +125,65 @@ def test_the_control_fails_the_limits(name):
     numbers["size_gap"] = 0.0
     ok, _ = check.verdict(numbers, c["limits"], [], 0)
     assert not ok, numbers
+
+
+def _added_architecture(tmp_path, source, base="kws_nsga_penalty.fused16"):
+    """The files a new architecture's cell adds, written beside the real
+    ones: ``reference/<module>.py`` holding ``source``, a configuration
+    that names it (``base``'s otherwise), its limits, and a BENCHMARK.json
+    with the entries. Returns (module file, limits file, cell, bench)."""
+    module = f"arch_{uuid.uuid4().hex[:12]}"
+    spec = cell.bench()
+    w = {x["name"]: x for x in spec["workloads"]}[base]
+    conf = {x["name"]: x for x in spec["configs"]}[w["config"]]
+    with open(os.path.join(cell.ROOT, conf["file"])) as f:
+        config = dict(json.load(f), name=module, reference=module)
+    tmp_path.mkdir()
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    name = f"{module}.{w['traffic']}"
+    bench = dict(
+        spec, configs=spec["configs"] + [dict(conf, name=module, file=str(
+            tmp_path / "config.json"))],
+        workloads=spec["workloads"] + [dict(w, name=name, config=module)])
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    mod_path = os.path.join(cell.HERE, "reference", f"{module}.py")
+    limits = os.path.join(cell.HERE, "limits", f"{name}.json")
+    assert not os.path.exists(mod_path) and not os.path.exists(limits)
+    with open(mod_path, "w") as f:
+        f.write(source)
+    with open(limits, "w") as f:
+        json.dump(cell.resolve(base)["limits"], f)
+    return mod_path, limits, name, str(tmp_path / "BENCHMARK.json")
+
+
+SKIP = "        h = F.relu(pool(y) + skip)\n"
+
+
+def test_an_architecture_is_added_with_files_alone(tmp_path, f32):
+    """A copy of the templates' module under another name, and a
+    configuration naming it, make a cell without a change to any harness
+    file; the check of a toy run reads exactly the original's numbers.
+    With the skip projection left out of a second copy's forward pass, the
+    same run is not correct: the check reads the module the configuration
+    names."""
+    with open(os.path.join(cell.HERE, "reference", "keras_cnn.py")) as f:
+        source = f.read()
+    assert source.count(SKIP) == 1
+    toy = TOY_DATA["kws_nsga_penalty"]
+    got = {}
+    for planted in (False, True):
+        src = source.replace(SKIP, "        h = F.relu(pool(y))\n") \
+            if planted else source
+        mod_path, limits, name, bench = _added_architecture(
+            tmp_path / str(planted), src)
+        try:
+            got[planted] = run(toy_cell(name, bench, toy))
+        finally:
+            os.remove(mod_path)
+            os.remove(limits)
+    want = run(toy_cell("kws_nsga_penalty.fused16"))
+    assert want["correct"]
+    assert got[False]["correct"] and got[False]["read"] == want["read"]
+    assert not got[True]["correct"], got[True]["checks"]
+    assert (got[True]["read"]["logit_gap"]
+            > want["checks"]["logit_gap"]["limit"])

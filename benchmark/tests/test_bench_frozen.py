@@ -1,12 +1,17 @@
 """The yardstick's frozen copies equal the port's originals, over the whole
-search space at both configurations' shapes, and the benchmark's data
+search space at each configuration's shapes, reached through the
+architecture module the configuration names, and the benchmark's data
 equals the port's synthetic maps."""
+
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark import data, frozen
+from benchmark import cell, data, frozen, reference
+from benchmark.reference import keras_cnn
 from cmoop_audio_processing_torch.core import genome as pgenome
 from cmoop_audio_processing_torch.core import rng as prng
 from cmoop_audio_processing_torch.data.pipeline import Standardizer
@@ -14,28 +19,44 @@ from cmoop_audio_processing_torch.data.synthetic import make_synthetic
 from cmoop_audio_processing_torch.engine import trainer as ptrainer
 from cmoop_audio_processing_torch.models import genome_arch, supernet
 
-SHAPES = (("A", 10, (45, 13)), ("B", 11, (501, 40)))
 GENOMES = frozen.all_genomes()
+
+
+def _configurations():
+    """(architecture module, template, classes, (H, W)) of each
+    configuration in BENCHMARK.json, by its name."""
+    out = []
+    for c in cell.bench()["configs"]:
+        with open(os.path.join(cell.ROOT, c["file"])) as f:
+            conf = json.load(f)
+        t, d = conf["train"], conf["data"]
+        out.append(pytest.param(
+            reference.load(conf["reference"]), t["template"],
+            t["num_classes"], (d["time_steps"], d["features"]), id=c["name"]))
+    return out
+
+
+SHAPES = _configurations()
 
 
 def test_space_is_the_ports():
     assert frozen.GENE_ORDER == pgenome.GENE_ORDER
     assert frozen.HPARAM_SPACE == pgenome.HPARAM_SPACE
     assert frozen.FC_CONFIGS == pgenome.FC_CONFIGS
-    assert frozen.FC_WIDTHS == supernet.FC_WIDTHS
+    assert keras_cnn.FC_WIDTHS == supernet.FC_WIDTHS
     assert GENOMES == pgenome.all_genomes()
     assert [frozen.genome_uid(g) for g in GENOMES] == [
         supernet.genome_uid(g) for g in GENOMES]
 
 
-@pytest.mark.parametrize("template,classes,hw", SHAPES)
-def test_counts_equal_the_ports(template, classes, hw):
+@pytest.mark.parametrize("arch,template,classes,hw", SHAPES)
+def test_counts_equal_the_ports(arch, template, classes, hw):
     for g in GENOMES:
-        assert frozen.count_params(g, classes, template) == \
+        assert arch.count_params(g, classes, template) == \
             genome_arch.count_params(g, classes, template)
-        assert frozen.model_size_mb(g, classes, template) == \
+        assert arch.model_size_mb(g, classes, template) == \
             genome_arch.model_size_mb(g, classes, template)
-        assert frozen.count_fwd_flops(g, hw, classes, template) == \
+        assert arch.count_fwd_flops(g, hw, classes, template) == \
             genome_arch.count_fwd_flops(g, hw, classes, template)
 
 
@@ -52,17 +73,17 @@ def test_counter_hash_equals_the_ports():
         assert frozen.train_key_of(seed) == ptrainer.train_key_of(seed)
 
 
-@pytest.mark.parametrize("template,classes,hw", SHAPES)
-def test_init_equals_the_ports(template, classes, hw):
+@pytest.mark.parametrize("arch,template,classes,hw", SHAPES)
+def test_init_equals_the_ports(arch, template, classes, hw):
     for g in GENOMES:
         spec = supernet.BucketSpec(template=template, filters=g["filters"],
                                    kernel=g["kernel_size"],
                                    num_classes=classes,
                                    max_blocks=g["residual_blocks"])
         pp, ps = supernet.init_params(2 ** 31 + 17, spec, g)
-        fp, fs = frozen.init_params(2 ** 31 + 17, template, g["filters"],
-                                    g["kernel_size"], classes,
-                                    g["residual_blocks"], g)
+        fp, fs = arch.init_params(2 ** 31 + 17, template, g["filters"],
+                                  g["kernel_size"], classes,
+                                  g["residual_blocks"], g)
         for a, b in zip(supernet.tree_leaves(pp), supernet.tree_leaves(fp)):
             assert torch.equal(a, b)
         for a, b in zip(supernet.tree_leaves(ps), supernet.tree_leaves(fs)):
@@ -72,7 +93,7 @@ def test_init_equals_the_ports(template, classes, hw):
 def test_dropout_and_shuffle_equal_the_ports():
     uids = torch.as_tensor([frozen.genome_uid(g) for g in GENOMES])
     for key in (0, 12345, 2 ** 32 - 1):
-        for layer, units in enumerate(frozen.FC_WIDTHS):
+        for layer, units in enumerate(frozen.FC_CONFIGS[4]):
             a = frozen.dropout_mask(key, uids, layer, (64, units), 0.7)
             b = supernet.dropout_mask(key, uids, layer, (64, units), 0.7)
             assert torch.equal(a, b)

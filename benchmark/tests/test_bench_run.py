@@ -37,7 +37,8 @@ def test_a_run_loads_no_jax_and_the_reference_none_of_the_port():
 import json, sys
 sys.path.insert(0, '.')
 import torch
-import benchmark.reference.model, benchmark.check, benchmark.frozen
+import benchmark.check, benchmark.frozen
+import benchmark.reference.keras_cnn, benchmark.reference.training
 ref_only = sorted({m.split('.')[0] for m in sys.modules})
 from benchmark import cell, check
 c = cell.resolve('bird_sa_nsga_penalty.fused16')
