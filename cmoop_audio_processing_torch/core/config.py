@@ -6,7 +6,8 @@ reference script becomes a named preset over shared dataclasses, reproducing
 that script's exact constants (sources cited per preset below).
 
 The presets are field-for-field those of cmoop_audio_processing_tpu, so a
-config means the same run in both packages. ``TrainConfig.compaction_chunk``
+config means the same run in both packages, and one more the JAX package
+lacks: ``sa_nsga_penalty_ds``, over template D. ``TrainConfig.compaction_chunk``
 and ``launch_seconds_budget`` are read as the JAX package reads them
 (engine/evaluator.py: lane compaction, the heavy-lane split and the
 launch-duration bound); ``parallel_impl`` is kept, but both its values run
@@ -75,7 +76,9 @@ class TrainConfig:
     # restoring. Default to the corrected (restore-best) behavior.
     restore_best_weights: bool = True
     accuracy_from: str = "best"  # "best" (model.evaluate) | "last_epoch"
-    template: str = "A"  # CNN template: "A" 2-conv stem | "B" 1-conv stem
+    # CNN template: "A" 2-conv stem | "B" 1-conv stem | "D" depthwise-
+    # separable blocks (models/genome_arch.py)
+    template: str = "A"
     dropout_rate: float = 0.3  # nsga_penalty.py:323
     # Engine knobs (no reference counterpart):
     compute_dtype: str = "bfloat16"  # matmul/conv dtype; params stay f32
@@ -393,6 +396,13 @@ def _presets() -> Dict[str, ExperimentConfig]:
         "size_fpr_nsga_1": "size_fpr",       # size_fpr_nsga_1.py
     }.items():
         p[preset_name] = p[preset_name].replace(artifact_suffix=suffix)
+
+    # sa_nsga_penalty's data, search and constraints over template D, DS-CNN's
+    # depthwise-separable block (arXiv:1711.07128). The port's own preset:
+    # the reference and the JAX package have templates A and B only.
+    base = p["sa_nsga_penalty"]
+    p["sa_nsga_penalty_ds"] = base.replace(
+        name="sa_nsga_penalty_ds", train=dataclasses.replace(base.train, template="D"))
     return p
 
 

@@ -5,7 +5,9 @@ The whole (padded) population is evaluated as a single network
 
 * conv: activations carry channels (pop * C) in (pop, C) order; the stacked
   (pop, C_out, C_in, k, k) kernels reshape to (pop * C_out, C_in, k, k) and
-  run as ONE ``F.conv2d(groups=pop)`` per layer (``group_conv``).
+  run as ONE ``F.conv2d(groups=pop)`` per layer (``group_conv``); template
+  D's depthwise kernels (pop, C, 1, k, k) run as one conv of pop * C
+  groups, one a lane's channel (``supernet.depthwise_conv2d``).
 * batchnorm: per merged channel == per-model per-channel, so the batch
   statistics are exactly each model's own; ``use_bn`` selects per lane
   (``group_bn``).
@@ -37,6 +39,7 @@ from .supernet import (
     bn_moving,
     bn_normalize,
     conv2d,
+    depthwise_conv2d,
     dropout_mask,
     lane_conv1x1,
     maxpool2,
@@ -53,7 +56,8 @@ def group_conv(h, w, b, stride: int, dtype: torch.dtype):
     """A population's conv layer as ONE grouped conv: h (B, pop*C_in, H, W)
     with channels in (pop, C) order, w (pop, C_out, C_in, k, k), b (pop,
     C_out) -> (B, pop*C_out, H', W'). A 1x1 conv (the stride-2 skip
-    projections) runs as one batched matmul (``supernet.lane_conv1x1``)."""
+    projections, template D's pointwise convs) runs as one batched matmul
+    (``supernet.lane_conv1x1``)."""
     if w.shape[-1] == 1:
         return lane_conv1x1(h, w, b, stride, dtype)
     pop = w.shape[0]
@@ -176,31 +180,55 @@ def apply_population_shards(
     def each(fn, hs):
         return [fn(h) for h in hs]
 
+    def depthwise(hs, blk):
+        # w (pop, C, 1, k, k) -> one conv of pop*C groups, one a channel
+        out = []
+        for h in hs:
+            w, b = p_of(h)[blk]["dw"]["w"], p_of(h)[blk]["dw"]["b"]
+            out.append(depthwise_conv2d(h, w.flatten(0, 1), b.reshape(-1),
+                                        dtype, lanes=w.shape[0]))
+        return out
+
     # Every lane reads the same one-channel input, so the first conv is ONE
     # ungrouped conv from it to all lanes' channels, (B, pop*C, H, W): the
     # conv apply_model runs, at every lane count (a grouped conv over the
-    # input broadcast into pop groups rounds differently at pop 1)
+    # input broadcast into pop groups rounds differently at pop 1).
+    # Template D's is at stride 2, its maps at the size the others' pool
+    # gives
+    stem_stride = 2 if spec.template == "D" else 1
     hs = [conv2d(nchw(x), p_of(x)["stem1"]["w"].flatten(0, 1),
-                 p_of(x)["stem1"]["b"].reshape(-1), 1, dtype) for x in xs]
-    if spec.template == "A":
+                 p_of(x)["stem1"]["b"].reshape(-1), stem_stride, dtype)
+          for x in xs]
+    if spec.template == "D":
         hs = each(F.relu, bn(hs, "stem1_bn", params["stem1_bn"]))
-        hs = conv(hs, lambda q: q["stem2"])
-        hs = each(F.relu, bn(hs, "stem2_bn", params["stem2_bn"]))
     else:
-        hs = bn(each(F.relu, hs), "stem1_bn", params["stem1_bn"])
-    hs = each(maxpool2, hs)
+        if spec.template == "A":
+            hs = each(F.relu, bn(hs, "stem1_bn", params["stem1_bn"]))
+            hs = conv(hs, lambda q: q["stem2"])
+            hs = each(F.relu, bn(hs, "stem2_bn", params["stem2_bn"]))
+        else:
+            hs = bn(each(F.relu, hs), "stem1_bn", params["stem1_bn"])
+        hs = each(maxpool2, hs)
 
     gap_w = spec.gap_width
     gaps = [torch.zeros(pop, x.shape[0], gap_w, device=x.device) for x in xs]
     for i in range(spec.max_blocks):
         blk = f"block{i}"
         skip = conv(hs, lambda q: q[blk]["skip"], stride=2)
-        ys = conv(hs, lambda q: q[blk]["conv1"])
-        if spec.template == "A":
+        if spec.template == "D":
+            ys = depthwise(hs, blk)
+            ys = each(F.relu, bn(ys, f"{blk}_dw_bn", params[blk]["dw_bn"]))
+            # contiguous at every lane count, as apply_model's
+            ys = each(torch.Tensor.contiguous,
+                      conv(ys, lambda q: q[blk]["pw"]))
+            ys = bn(ys, f"{blk}_pw_bn", params[blk]["pw_bn"])
+        elif spec.template == "A":
+            ys = conv(hs, lambda q: q[blk]["conv1"])
             ys = each(F.relu, bn(ys, f"{blk}_conv1_bn", params[blk]["conv1_bn"]))
             ys = bn(conv(ys, lambda q: q[blk]["conv2"]), f"{blk}_conv2_bn",
                     params[blk]["conv2_bn"])
         else:
+            ys = conv(hs, lambda q: q[blk]["conv1"])
             ys = bn(each(F.relu, ys), f"{blk}_conv1_bn", params[blk]["conv1_bn"])
         hs = [F.relu(maxpool2(y) + s) for y, s in zip(ys, skip)]
         # multi-exit GAP in f32, zero-padded to the widest width, selected

@@ -34,7 +34,15 @@ from .supernet import FC_WIDTHS
 def build_keras_model(genome: Genome, num_classes: int, input_hw,
                       template: str = "A", dropout_rate: float = 0.3):
     """Concrete (mask-free) Keras graph for one genome, layer-named for
-    ``transplant_weights``. Returns an uncompiled tf.keras.Model."""
+    ``transplant_weights``. Returns an uncompiled tf.keras.Model.
+    Templates A and B only: template D (depthwise-separable blocks) is
+    refused, since its ``DepthwiseConv2D`` transplant could not be tested
+    without TensorFlow; ``engine.export.predict`` runs a saved D model."""
+    if template not in ("A", "B"):
+        raise ValueError(
+            f"build_keras_model realizes templates 'A' and 'B', not "
+            f"{template!r}: template 'D' (depthwise-separable) has no "
+            f"Keras graph here")
     from tensorflow.keras import Input, Model, layers
 
     validate(genome)

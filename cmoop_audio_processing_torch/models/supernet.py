@@ -34,6 +34,15 @@ BatchNormalization is written out: Keras semantics (momentum 0.99 applied
 to the OLD moving value, biased batch variance, eps 1e-3), which
 ``F.batch_norm`` does not give (its momentum weights the new sample and its
 running variance is unbiased).
+
+Templates (models/genome_arch.py has their equations): "A" and "B", the
+reference's two Keras CNNs, and "D", DS-CNN's depthwise-separable block
+(arXiv:1711.07128) in the same residual frame: a k x k stride-2 stem, then
+per block a depthwise k x k conv (``depthwise_conv2d``) and a pointwise
+1x1 conv (``lane_conv1x1`` at stride 1). Template D's parameters: ``stem1``,
+``stem1_bn`` and per block ``skip``, ``dw`` (kernel (C, 1, k, k)),
+``dw_bn``, ``pw`` and ``pw_bn``; its init takes three slots a block (skip,
+dw, pw) in that order.
 """
 
 from __future__ import annotations
@@ -50,11 +59,14 @@ import torch.nn.functional as F
 
 from ..core.genome import Genome, genome_key
 from ..core.rng import fold_in, seed_key
+from ..utils import profiling
 
 FC_WIDTHS = (512, 256, 128, 64)  # fixed chain; genomes enter at 5 - n_fc
 BN_MOMENTUM = 0.99  # keras BatchNormalization defaults
 BN_EPS = 1e-3
-CONV_LAYERS = ("stem1", "stem2", "skip", "conv1", "conv2")
+CONV_LAYERS = ("stem1", "stem2", "skip", "conv1", "conv2", "pw")
+DEPTHWISE_LAYERS = ("dw",)
+TEMPLATES = ("A", "B", "D")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +75,7 @@ class BucketSpec:
     the program to the deepest genome present (engine/evaluator.py sets it
     per launch)."""
 
-    template: str  # "A" | "B"
+    template: str  # "A" | "B" | "D"
     filters: int
     kernel: int
     num_classes: int
@@ -152,6 +164,8 @@ def init_params(seed: int, spec: BucketSpec, genome: Genome):
     """Parameters + BN state of ONE genome in this bucket (CPU tensors), a
     deterministic function of (seed, genome, spec) that does not depend on
     ``spec.max_blocks`` beyond which blocks exist."""
+    if spec.template not in TEMPLATES:
+        raise ValueError(f"unknown template {spec.template!r}")
     f, k = spec.filters, spec.kernel
     n_blocks = int(genome["residual_blocks"])
     fc_entry = 5 - int(genome["fc_layers"])
@@ -177,10 +191,25 @@ def init_params(seed: int, spec: BucketSpec, genome: Genome):
         # always TAKE this block's slots, even past max_blocks, so the
         # slot numbering is the same at every specialization level
         g_skip, g_conv1 = gen(), gen()
-        g_conv2 = gen() if spec.template == "A" else None
+        g_conv2 = gen() if spec.template in ("A", "D") else None
         if i >= spec.max_blocks:
             continue
         c_in, c_out = spec.block_channels[i]
+        if spec.template == "D":
+            # depthwise (Keras DepthwiseConv2D: glorot over the (k, k, c, 1)
+            # kernel, fan_in k*k*c, fan_out k*k), then pointwise c -> 2c
+            params[f"block{i}"] = {
+                "skip": _conv_init(g_skip, 1, c_in, c_out),
+                "dw": {"w": _glorot(g_conv1, (c_in, 1, k, k), k * k * c_in,
+                                    k * k),
+                       "b": torch.zeros(c_in)},
+                "dw_bn": _bn_init(c_in),
+                "pw": _conv_init(g_conv2, 1, c_in, c_out),
+                "pw_bn": _bn_init(c_out),
+            }
+            state[f"block{i}_dw_bn"] = _bn_state_init(c_in)
+            state[f"block{i}_pw_bn"] = _bn_state_init(c_out)
+            continue
         blk: Dict = {
             "skip": _conv_init(g_skip, 1, c_in, c_out),
             "conv1": _conv_init(g_conv1, k, c_in, c_out),
@@ -264,7 +293,9 @@ def init_population(seed: int, spec: BucketSpec, genomes, device="cpu"):
 
 def _carry(tree, to_torch: bool, device, parent: str = ""):
     """``parent`` names the dict holding ``tree``: a conv layer's kernel is
-    the >= 4-dim leaf of a CONV_LAYERS dict."""
+    the >= 4-dim leaf of a CONV_LAYERS dict, a depthwise kernel that of a
+    DEPTHWISE_LAYERS dict ((C, 1, k, k) here, Keras's (k, k, C, 1) there;
+    the permutation is its own inverse)."""
     if isinstance(tree, dict):
         return {
             k: _carry(v, to_torch, device, k if isinstance(v, dict) else parent)
@@ -272,12 +303,16 @@ def _carry(tree, to_torch: bool, device, parent: str = ""):
         }
     if to_torch:
         a = torch.tensor(np.asarray(tree, np.float32), device=device)
-        if parent in CONV_LAYERS and a.dim() >= 4:
+        if parent in DEPTHWISE_LAYERS and a.dim() >= 4:
+            a = a.permute(0, 3, 4, 1, 2) if a.dim() == 5 else a.permute(2, 3, 0, 1)
+        elif parent in CONV_LAYERS and a.dim() >= 4:
             # HWIO (k, k, C_in, C_out) -> OIHW, with or without a pop axis
             a = a.permute(0, 4, 3, 1, 2) if a.dim() == 5 else a.permute(3, 2, 0, 1)
         return a.contiguous()
     a = tree.detach().cpu()
-    if parent in CONV_LAYERS and a.dim() >= 4:
+    if parent in DEPTHWISE_LAYERS and a.dim() >= 4:
+        a = a.permute(0, 3, 4, 1, 2) if a.dim() == 5 else a.permute(2, 3, 0, 1)
+    elif parent in CONV_LAYERS and a.dim() >= 4:
         a = a.permute(0, 3, 4, 2, 1) if a.dim() == 5 else a.permute(2, 3, 1, 0)
     return a.contiguous().numpy()
 
@@ -306,13 +341,78 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], 1, x.shape[1], x.shape[2])
 
 
+def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """TF/Keras SAME padding of one axis of length ``n``: (before, after),
+    the odd one after, so a stride-2 k x k conv at an even width pads
+    asymmetrically (k 5 at 40: (1, 2))."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
 def conv2d(x, w, b, stride: int, dtype: torch.dtype, groups: int = 1):
     """SAME-padded conv in the compute dtype (parameters live in f32; the
-    activations stay in the compute dtype, as in the JAX package). The
-    stride-2 convs are 1x1, for which SAME needs no padding."""
+    activations stay in the compute dtype, as in the JAX package). At
+    stride 1 (odd k) the padding is symmetric; at stride 2 (template D's
+    stem) it is Keras's, padded explicitly (``same_pads``)."""
     k = w.shape[-1]
-    y = F.conv2d(x.to(dtype), w.to(dtype), stride=stride,
-                 padding=k // 2 if stride == 1 else 0, groups=groups)
+    x = x.to(dtype)
+    if stride == 1:
+        y = F.conv2d(x, w.to(dtype), padding=k // 2, groups=groups)
+    else:
+        (t, bo), (le, r) = (same_pads(n, k, stride) for n in x.shape[2:])
+        y = F.conv2d(F.pad(x, (le, r, t, bo)), w.to(dtype), stride=stride,
+                     groups=groups)
+    return y + b.to(dtype)[None, :, None, None]
+
+
+class _Depthwise(torch.autograd.Function):
+    """A depthwise stride-1 SAME conv, x (B, N, H, W) by w (N, 1, k, k),
+    whose forward and each backward pass run inside a ``grouped.
+    depthwise`` span (``pass`` "fwd", "dgrad", "wgrad"). The backward runs
+    the two passes as two ``convolution_backward`` calls, under the
+    recorder the forward saw: on the card autograd's device thread runs
+    them, where the recording context is unset, their spans beside the
+    forward's."""
+
+    @staticmethod
+    def forward(ctx, x, w, rec, attrs):
+        ctx.save_for_backward(x, w)
+        ctx.rec, ctx.attrs = rec, attrs
+        with profiling.span_on(rec, "grouped.depthwise", **{"pass": "fwd"},
+                               **attrs) as ctx.fwd:
+            return F.conv2d(x, w, padding=w.shape[-1] // 2,
+                            groups=w.shape[0])
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        p = w.shape[-1] // 2
+        args = (gy, x, w, None, [1, 1], [p, p], [1, 1], False, [0, 0],
+                w.shape[0])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            with profiling.span_on(ctx.rec, "grouped.depthwise",
+                                   beside=ctx.fwd, **{"pass": "dgrad"},
+                                   **ctx.attrs):
+                gx = torch.ops.aten.convolution_backward(
+                    *args, [True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            with profiling.span_on(ctx.rec, "grouped.depthwise",
+                                   beside=ctx.fwd, **{"pass": "wgrad"},
+                                   **ctx.attrs):
+                gw = torch.ops.aten.convolution_backward(
+                    *args, [False, True, False])[1]
+        return gx, gw, None, None
+
+
+def depthwise_conv2d(h, w, b, dtype: torch.dtype, lanes: int = 1):
+    """Depthwise k x k SAME conv with depth multiplier 1 in the compute
+    dtype: h (B, N, H, W), w (N, 1, k, k), b (N,), one group a channel
+    (``lanes`` lanes of N / lanes channels each: the span's attributes)."""
+    x = h.to(dtype)
+    attrs = {"lanes": lanes, "channels": w.shape[0] // lanes,
+             "hw": list(x.shape[2:]), "k": w.shape[-1]}
+    y = _Depthwise.apply(x, w.to(dtype), profiling.active(), attrs)
     return y + b.to(dtype)[None, :, None, None]
 
 
@@ -419,29 +519,44 @@ def apply_model(
         new_state[name] = {"mean": m, "var": v}
         return h
 
-    h = conv(nchw(x), params["stem1"])
-    if spec.template == "A":
-        # Template A: conv -> BN? -> ReLU, twice (nsga_penalty.py:255-263)
+    if spec.template == "D":
+        # Template D: stride-2 conv -> BN? -> ReLU, no pool
+        h = conv(nchw(x), params["stem1"], stride=2)
         h = F.relu(bn(h, "stem1_bn", params["stem1_bn"]))
-        h = conv(h, params["stem2"])
-        h = F.relu(bn(h, "stem2_bn", params["stem2_bn"]))
     else:
-        # Template B: conv(relu) -> BN? (sa_nsga_penalty.py:151-152)
-        h = bn(F.relu(h), "stem1_bn", params["stem1_bn"])
-    h = maxpool2(h)
+        h = conv(nchw(x), params["stem1"])
+        if spec.template == "A":
+            # Template A: conv -> BN? -> ReLU, twice (nsga_penalty.py:255-263)
+            h = F.relu(bn(h, "stem1_bn", params["stem1_bn"]))
+            h = conv(h, params["stem2"])
+            h = F.relu(bn(h, "stem2_bn", params["stem2_bn"]))
+        else:
+            # Template B: conv(relu) -> BN? (sa_nsga_penalty.py:151-152)
+            h = bn(F.relu(h), "stem1_bn", params["stem1_bn"])
+        h = maxpool2(h)
 
     exits = []
     for i in range(spec.max_blocks):
         blk = params[f"block{i}"]
         skip = conv(h, blk["skip"], stride=2)
-        y = conv(h, blk["conv1"])
-        if spec.template == "A":
+        if spec.template == "D":
+            # depthwise -> BN? -> ReLU -> pointwise -> BN? -> pool -> add
+            # -> ReLU
+            y = depthwise_conv2d(h, blk["dw"]["w"], blk["dw"]["b"], dtype)
+            y = F.relu(bn(y, f"block{i}_dw_bn", blk["dw_bn"]))
+            # contiguous: at one lane lane_conv1x1 returns a channels-last
+            # view, whose BN statistics would sum in another order
+            y = bn(conv(y, blk["pw"]).contiguous(), f"block{i}_pw_bn",
+                   blk["pw_bn"])
+        elif spec.template == "A":
             # conv -> BN? -> ReLU -> conv -> BN? -> pool -> add -> ReLU
-            y = F.relu(bn(y, f"block{i}_conv1_bn", blk["conv1_bn"]))
+            y = F.relu(bn(conv(h, blk["conv1"]), f"block{i}_conv1_bn",
+                          blk["conv1_bn"]))
             y = bn(conv(y, blk["conv2"]), f"block{i}_conv2_bn", blk["conv2_bn"])
         else:
             # conv(relu) -> BN? -> pool -> add -> ReLU
-            y = bn(F.relu(y), f"block{i}_conv1_bn", blk["conv1_bn"])
+            y = bn(F.relu(conv(h, blk["conv1"])), f"block{i}_conv1_bn",
+                   blk["conv1_bn"])
         h = F.relu(maxpool2(y) + skip)
         # GAP accumulates in f32; the FC head is tiny and stays f32
         exits.append(h.float().mean(dim=(2, 3)))

@@ -11,6 +11,14 @@ of jax.profiler). Stage timing is utils/reporting.StageTimer's.
   (and context), and yields the list of ``Span`` records, in the order the
   spans opened. Records stay in memory; a span's count is its number of
   records, and counts that belong to a boundary go into its ``attrs``;
+* ``active()`` and ``span_on(recorder, name, beside=None, **attrs)`` carry
+  recording to code that runs outside the context that turned it on: on
+  the card, autograd runs a backward pass on a device thread of its own
+  (one a card, at once), where the context variable is unset, so an
+  autograd Function takes ``active()`` in its forward and opens its
+  backward's spans with ``span_on``, beside its forward's span. Each
+  thread keeps its own stack of open spans; a span opened in a thread with
+  none open takes ``beside``'s parent and call;
 * ``trace()`` wraps a stage in a ``torch.profiler.profile`` that records
   host and, with a GPU, device activity, with recording on so that every
   span shows as a region, and writes a Chrome trace
@@ -31,6 +39,7 @@ import contextlib
 import contextvars
 import dataclasses
 import os
+import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -39,9 +48,11 @@ import torch
 
 @dataclasses.dataclass
 class Span:
-    """One recorded span. ``call`` is the id of the outermost span open
-    when it opened (its own id if none was): on the program's paths, the
-    ``evaluator.call`` it belongs to. ``end_ns`` is 0 while it is open."""
+    """One recorded span. ``parent`` is the innermost span open in its
+    thread when it opened, ``call`` the id of the outermost (its own id if
+    none was, or, given ``beside``, that span's parent and call): on the
+    program's paths, the ``evaluator.call`` it belongs to. ``end_ns`` is 0
+    while it is open."""
 
     name: str
     id: int
@@ -55,28 +66,46 @@ class Span:
 class _Recorder:
     def __init__(self):
         self.records: List[Span] = []
-        self.open: List[Span] = []
+        self.lock = threading.Lock()
+        self.local = threading.local()
         self.offset = time.time_ns() - time.perf_counter_ns()
+
+    def stack(self) -> List[Span]:
+        """The spans open in the calling thread, innermost last."""
+        open_ = getattr(self.local, "open", None)
+        if open_ is None:
+            open_ = self.local.open = []
+        return open_
 
 
 class _Open:
     """The context of one span while recording is on."""
 
-    __slots__ = ("rec", "name", "attrs", "record", "region")
+    __slots__ = ("rec", "name", "attrs", "beside", "stack", "record",
+                 "region")
 
-    def __init__(self, rec: _Recorder, name: str, attrs: Dict[str, Any]):
+    def __init__(self, rec: _Recorder, name: str, attrs: Dict[str, Any],
+                 beside: Optional[Span] = None):
         self.rec, self.name, self.attrs = rec, name, attrs
+        self.beside = beside
 
     def __enter__(self):
         rec = self.rec
-        outer = rec.open[-1] if rec.open else None
-        n = len(rec.records)
-        self.record = Span(
-            self.name, n, outer.id if outer else None,
-            outer.call if outer else n,
-            time.perf_counter_ns() + rec.offset, 0, self.attrs)
-        rec.records.append(self.record)
-        rec.open.append(self.record)
+        self.stack = rec.stack()
+        outer = self.stack[-1] if self.stack else None
+        if outer is not None:
+            parent, call = outer.id, outer.call
+        elif self.beside is not None:
+            parent, call = self.beside.parent, self.beside.call
+        else:
+            parent, call = None, None
+        with rec.lock:
+            n = len(rec.records)
+            self.record = Span(
+                self.name, n, parent, n if call is None else call,
+                time.perf_counter_ns() + rec.offset, 0, self.attrs)
+            rec.records.append(self.record)
+        self.stack.append(self.record)
         # the region opens inside the span's stamps: its own set-up (about
         # a millisecond the first time in a process) comes after the stamp
         # and the region's start alike
@@ -90,7 +119,7 @@ class _Open:
         if self.region is not None:
             self.region.__exit__(*exc)
         self.record.end_ns = time.perf_counter_ns() + self.rec.offset
-        self.rec.open.pop()
+        self.stack.pop()
         return False
 
 
@@ -114,10 +143,23 @@ _ACTIVE: contextvars.ContextVar[Optional[_Recorder]] = contextvars.ContextVar(
 def span(name: str, **attrs):
     """A context that records the region ``name`` with ``attrs`` while
     recording is on; the shared no-op context otherwise."""
-    rec = _ACTIVE.get()
+    return span_on(_ACTIVE.get(), name, **attrs)
+
+
+def active() -> Optional[_Recorder]:
+    """The recorder of the current context, None while recording is off."""
+    return _ACTIVE.get()
+
+
+def span_on(rec: Optional[_Recorder], name: str,
+            beside: Optional[Span] = None, **attrs):
+    """``span`` on the recorder ``rec`` (an ``active()`` taken elsewhere),
+    whatever the current context; the shared no-op context for None. In a
+    thread with no span of ``rec`` open, the span takes the parent and the
+    call of ``beside`` (a record of ``rec``), where one is given."""
     if rec is None:
         return _OFF
-    return _Open(rec, name, attrs)
+    return _Open(rec, name, attrs, beside)
 
 
 @contextlib.contextmanager

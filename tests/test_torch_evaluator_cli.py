@@ -83,10 +83,18 @@ def test_evaluator_refuses_cuda_without_a_gpu(data):
 
 
 def test_presets_equal_the_jax_packages():
-    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
+    """Every preset of the JAX package is the port's, field for field. The
+    port has one more, ``sa_nsga_penalty_ds``: ``sa_nsga_penalty`` over
+    template D, which the JAX package does not have."""
+    assert sorted(tconfig.PRESETS) == sorted(
+        list(jconfig.PRESETS) + ["sa_nsga_penalty_ds"])
     for name in jconfig.PRESETS:
         assert dataclasses.asdict(tconfig.PRESETS[name]) == dataclasses.asdict(
             jconfig.PRESETS[name]), name
+    base = dataclasses.asdict(jconfig.PRESETS["sa_nsga_penalty"])
+    assert dataclasses.asdict(tconfig.PRESETS["sa_nsga_penalty_ds"]) == dict(
+        base, name="sa_nsga_penalty_ds", train=dict(base["train"],
+                                                    template="D"))
 
 
 def test_fake_evaluator_equals_the_jax_packages():

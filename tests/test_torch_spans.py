@@ -7,6 +7,7 @@ of the profiler's events; and ``CMOOP_LOG_LAUNCHES=1`` prints the launch
 lines it always printed."""
 
 import re
+import threading
 import time
 
 import pytest
@@ -16,7 +17,12 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from cmoop_audio_processing_torch.core.config import DataConfig, TrainConfig
 from cmoop_audio_processing_torch.data.pipeline import prepare_dataset
 from cmoop_audio_processing_torch.engine import evaluator as tev
-from cmoop_audio_processing_torch.utils.profiling import recording, span
+from cmoop_audio_processing_torch.utils.profiling import (
+    active,
+    recording,
+    span,
+    span_on,
+)
 
 # the test workers share the CPU's cores: one intra-op thread per worker
 # keeps PyTorch's thread pool from oversubscribing them
@@ -108,6 +114,50 @@ def test_recording_keeps_the_tree_and_restores_the_outer_recorder():
     assert root.start_ns <= child.start_ns <= leaf.start_ns
     assert leaf.end_ns <= child.end_ns <= root.end_ns
     assert leaf.end_ns - leaf.start_ns >= 1_000_000
+
+
+def test_threads_keep_their_own_open_spans():
+    """Two threads' spans on one recorder interleave (autograd's device
+    threads, one a card, run backward passes at once): a span's parent is
+    the span open in its own thread, or, in a thread with none open, the
+    parent of the span it opens ``beside``; each exit closes its own span."""
+    turn = [threading.Event() for _ in range(4)]
+    with recording() as recs:
+        rec = active()
+        with span("step"):
+            with span("fwd") as fwd:
+                pass
+
+        def first():
+            with span_on(rec, "a", beside=fwd):
+                turn[0].set()
+                turn[1].wait(30)
+                with span_on(rec, "a_inner"):
+                    turn[2].set()
+                    turn[3].wait(30)
+
+        def second():
+            turn[0].wait(30)
+            with span_on(rec, "b"):
+                turn[1].set()
+                turn[2].wait(30)
+            turn[3].set()
+
+        threads = [threading.Thread(target=f) for f in (first, second)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        with span("after"):
+            pass
+    assert not any(t.is_alive() for t in threads)
+    assert all(e.is_set() for e in turn)
+    assert [(r.name, r.id, r.parent, r.call) for r in recs] == [
+        ("step", 0, None, 0), ("fwd", 1, 0, 0), ("a", 2, 0, 0),
+        ("b", 3, None, 3), ("a_inner", 4, 2, 0), ("after", 5, None, 5)]
+    a, b, inner = recs[2], recs[3], recs[4]
+    assert b.end_ns <= inner.end_ns <= a.end_ns
+    assert all(r.end_ns >= r.start_ns > 0 for r in recs)
 
 
 @pytest.mark.parametrize("chunk", [0, 2], ids=["one_shot", "compacted"])
